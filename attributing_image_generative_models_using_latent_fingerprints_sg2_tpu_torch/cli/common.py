@@ -1,0 +1,119 @@
+"""Shared CLI flag surface: the reference CLI's flag names for everything
+the port carries, plus ``--device``.
+
+Flags of features that are not ported yet are still parsed, so that a
+non-default value is refused with a clear error instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from ..config import (
+    AttackConfig,
+    AttributionConfig,
+    Config,
+    FingerprintConfig,
+    ModelConfig,
+    RunConfig,
+)
+
+
+def build_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: cuda (the CUDA kernels) or cpu (their plain versions)")
+    p.add_argument("--model", type=str, default="sg2", help="GAN model (sg2)")
+    p.add_argument("--ckpt", type=str, default="./checkpoint/550000.pt",
+                   help="generator checkpoint (rosinality .pt, or .npz with the same names)")
+    p.add_argument("--random_init", action="store_true",
+                   help="random generator weights instead of --ckpt")
+    p.add_argument("--img_size", type=int, default=256, help="generator output size")
+    p.add_argument("--style_dim", type=int, default=512, help="w-space dimensionality")
+    p.add_argument("--n_mlp", type=int, default=8, help="mapping network depth")
+    p.add_argument("--channel_max", type=int, default=512, help="per-resolution channel cap")
+    p.add_argument("--sample_size", type=int, default=100, help="number of samples / tests")
+    p.add_argument("--batch_size", type=int, default=1, help="generation batch size")
+    p.add_argument("--sd", type=int, default=1, help="standard deviations moved (c)")
+    p.add_argument("--key_len", type=int, default=64, help="binary key length")
+    p.add_argument("--shift", type=int, default=448, help="first PC of the key carrier")
+    p.add_argument("--sigma", type=float, default=1.0, help="perturb strength")
+    p.add_argument("--steps", type=int, default=2000, help="optimization steps")
+    p.add_argument("--n", type=int, default=20, help="Latin hypercube restarts")
+    p.add_argument("--lr", type=float, default=0.2, help="attribution learning rate")
+    p.add_argument("--loss", type=str, default="perceptual", help="perceptual | mse")
+    p.add_argument("--save_dir", type=str, default="./result/", help="output directory")
+    p.add_argument("--seed", type=int, default=0, help="global seed")
+    p.add_argument("--lpips_vgg", type=str, default=None,
+                   help="torchvision-format VGG16 state dict for the LPIPS backbone")
+    p.add_argument("--lpips_lin", type=str, default=None,
+                   help="LPIPS linear-head weights (vgg.pth)")
+    # parsed only to be refused when set (not yet ported)
+    p.add_argument("--augmentation", type=str, default="None", help="attack (only None is ported)")
+    p.add_argument("--attack_aware", action="store_true", help="not yet ported")
+    p.add_argument("--polish_sweeps", type=int, default=0, help="not yet ported")
+    p.add_argument("--prune_starts", type=int, default=0, help="not yet ported")
+    p.add_argument("--coarse_to_fine", action="store_true", help="not yet ported")
+    p.add_argument("--dtype", type=str, default="float32", help="float32 (bfloat16 not yet ported)")
+    return p
+
+
+def _refuse(args: argparse.Namespace) -> None:
+    checks = [
+        ("--augmentation", args.augmentation != "None"),
+        ("--attack_aware", args.attack_aware),
+        ("--polish_sweeps", args.polish_sweeps != 0),
+        ("--prune_starts", args.prune_starts != 0),
+        ("--coarse_to_fine", args.coarse_to_fine),
+        ("--model " + args.model, args.model != "sg2"),
+        ("--dtype " + args.dtype, args.dtype != "float32"),
+        ("--init encoder", getattr(args, "init", "lhs") != "lhs"),
+        ("--resume", getattr(args, "resume", None) is not None),
+        ("--chunk_samples", getattr(args, "chunk_samples", 0) != 0),
+        ("--chunk_starts", getattr(args, "chunk_starts", 0) != 0),
+    ]
+    for flag, is_set in checks:
+        if is_set:
+            raise SystemExit(f"{flag}: not yet ported to the PyTorch package")
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    _refuse(args)
+    if args.loss not in ("perceptual", "mse"):
+        raise SystemExit(f"--loss must be 'perceptual' or 'mse', got {args.loss!r}")
+    if not args.random_init and args.ckpt and not os.path.exists(args.ckpt):
+        raise SystemExit(
+            f"checkpoint not found: {args.ckpt!r} (pass --ckpt PATH to a rosinality .pt, "
+            "or --random_init)"
+        )
+    return Config(
+        model=ModelConfig(
+            model=args.model, img_size=args.img_size, style_dim=args.style_dim,
+            n_mlp=args.n_mlp, channel_max=args.channel_max,
+            ckpt=None if args.random_init else args.ckpt,
+        ),
+        fingerprint=FingerprintConfig(
+            key_len=args.key_len, shift=args.shift, sigma=args.sigma, sd_moved=float(args.sd),
+        ),
+        attribution=AttributionConfig(steps=args.steps, n_starts=args.n, lr=args.lr, loss=args.loss),
+        attack=AttackConfig(augmentation=args.augmentation),
+        run=RunConfig(sample_size=args.sample_size, batch_size=args.batch_size,
+                      save_dir=args.save_dir, seed=args.seed, device=args.device),
+    )
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device; CUDA must be present when asked for (no silent CPU
+    fallback).  Float32 stays float32: TF32 is switched off for cuDNN and
+    matmuls, so the plain convs and the kernels compute the same thing."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda: no CUDA device is available (pass --device cpu to "
+                             "run the plain PyTorch versions on the CPU)")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device

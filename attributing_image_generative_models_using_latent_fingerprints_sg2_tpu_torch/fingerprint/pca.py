@@ -1,0 +1,54 @@
+"""PCA of the generator's W space, on the device (``torch.linalg.eigh``).
+
+Counterpart of the reference package's ``fingerprint/pca.py``: components
+are eigenvectors of the sample covariance (denominator n-1) ranked by
+descending variance, each row's sign fixed so its largest-|.| coordinate is
+positive.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..models import stylegan2 as sg2
+
+
+@dataclasses.dataclass(frozen=True)
+class PCABasis:
+    pc: torch.Tensor  # [D, D] components as rows, descending variance
+    sigma: torch.Tensor  # [D] per-axis standard deviations
+    mean: torch.Tensor  # [D] latent mean
+
+
+def pca_from_samples(samples: torch.Tensor) -> PCABasis:
+    """PCA of [N, D] samples via eigh of the covariance."""
+    n = samples.shape[0]
+    mean = samples.mean(dim=0)
+    xc = samples - mean
+    cov = (xc.T @ xc) / (n - 1)
+    evals, evecs = torch.linalg.eigh(cov)  # ascending
+    evals = torch.flip(evals, (0,))
+    pc = torch.flip(evecs, (1,)).T.contiguous()
+    idx = torch.argmax(pc.abs(), dim=1)
+    signs = torch.sign(pc[torch.arange(pc.shape[0], device=pc.device), idx])
+    pc = pc * signs[:, None]
+    return PCABasis(pc=pc, sigma=torch.sqrt(torch.clamp(evals, min=0.0)), mean=mean)
+
+
+@torch.no_grad()
+def perform_pca_for_params(
+    params,
+    lr_mlp: float,
+    n_samples: int = 10000,
+    dim: int = 512,
+    generator: Optional[torch.Generator] = None,
+    z: Optional[torch.Tensor] = None,
+) -> PCABasis:
+    """z ~ N(0, I) [n_samples, dim] (or the given ``z``) -> mapping network -> PCA."""
+    device = params["input"].device
+    if z is None:
+        z = torch.randn((n_samples, dim), generator=generator)
+    return pca_from_samples(sg2.mapping_network(params, z.to(device), lr_mlp))

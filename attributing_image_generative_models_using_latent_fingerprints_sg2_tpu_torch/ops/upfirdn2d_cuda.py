@@ -1,0 +1,140 @@
+"""The two 4-tap FIR kernels of the synthesis network (``csrc/upfirdn2d.cu``).
+
+Counterpart of the reference's ``ops/upfirdn2d_pallas.py``:
+
+- ``blur4``:   up=down=1 separable 4x4 FIR with pads (p0, p1) per axis, the
+               post-transpose blur of every upsample styled conv;
+- ``upblur4``: up=2, pad (2, 1) separable 4x4 FIR, the ToRGB skip upsample.
+
+Each public function runs its plain PyTorch version on a CPU tensor and the
+CUDA kernel on a CUDA tensor (float32, else it raises).  Taps are the
+per-axis kernel *including* its gain, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ._cuda import FLOAT, INT, PTR, Kernel, check_cuda_f32, register
+
+BLUR4 = register(Kernel(
+    "blur4", "fp_blur4_f32", [PTR, PTR] + [INT] * 8 + [FLOAT] * 8,
+    source="csrc/upfirdn2d.cu",
+    replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/upfirdn2d_pallas.py:127",
+))
+UPBLUR4 = register(Kernel(
+    "upblur4", "fp_upblur4_f32", [PTR, PTR] + [INT] * 4 + [FLOAT] * 4,
+    source="csrc/upfirdn2d.cu",
+    replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/upfirdn2d_pallas.py:216",
+))
+
+
+def depthwise_correlate(
+    x: torch.Tensor, k2d: torch.Tensor, pads: Tuple[int, int, int, int], stride=1
+) -> torch.Tensor:
+    """NHWC depthwise correlation with one 2-D kernel; pads = (y0, y1, x0, x1) >= 0,
+    stride an int or (y, x)."""
+    c = x.shape[-1]
+    t = F.pad(x.permute(0, 3, 1, 2), (pads[2], pads[3], pads[0], pads[1]))
+    w = k2d.to(x.dtype).expand(c, 1, *k2d.shape).contiguous()
+    return F.conv2d(t, w, stride=stride, groups=c).permute(0, 2, 3, 1)
+
+
+def _outer(a: Sequence[float], b: Sequence[float], like: torch.Tensor) -> torch.Tensor:
+    return torch.outer(torch.tensor(list(a), dtype=torch.float32),
+                       torch.tensor(list(b), dtype=torch.float32)).to(like.device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def blur4_plain(x, ky, kx, pad_y, pad_x) -> torch.Tensor:
+    """upfirdn2d(x, outer(ky, kx), pad=...): correlate with the flipped kernel."""
+    k = _outer(tuple(ky)[::-1], tuple(kx)[::-1], x)
+    return depthwise_correlate(x, k, (pad_y[0], pad_y[1], pad_x[0], pad_x[1]))
+
+
+def upblur4_plain(x, k) -> torch.Tensor:
+    """upfirdn2d(x, outer(k, k), up=2, pad=(2, 1)): zero-stuff, pad, correlate."""
+    n, h, w, c = x.shape
+    u = x.new_zeros(n, 2 * h, 2 * w, c)
+    u[:, ::2, ::2] = x
+    kf = tuple(k)[::-1]
+    return depthwise_correlate(u, _outer(kf, kf, x), (2, 1, 2, 1))
+
+
+def _upblur4_adjoint(g: torch.Tensor, k) -> torch.Tensor:
+    """Adjoint of upblur4: down=2 correlation with outer(k, k), pad (1, 1)
+    (the reference's ``_upblur4_bwd``, computed outside Pallas there too)."""
+    return depthwise_correlate(g, _outer(k, k, g), (1, 1, 1, 1), stride=2)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def _blur4_launch(x, fy, fx, pad_y, pad_x) -> torch.Tensor:
+    """Launch with FLIPPED taps fy/fx (correlation taps)."""
+    check_cuda_f32("blur4", x)
+    n, h, w, c = x.shape
+    oh = h + pad_y[0] + pad_y[1] - 3
+    ow = w + pad_x[0] + pad_x[1] - 3
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"blur4: empty output for input {tuple(x.shape)} and pads {pad_y}, {pad_x}")
+    y = torch.empty((n, oh, ow, c), device=x.device, dtype=x.dtype)
+    BLUR4(x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow, pad_y[0], pad_x[0], *fy, *fx)
+    return y
+
+
+class _Blur4(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ky, kx, pad_y, pad_x):
+        ctx.taps = (ky, kx, pad_y, pad_x)
+        return _blur4_launch(x.contiguous(), ky[::-1], kx[::-1], pad_y, pad_x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ky, kx, pad_y, pad_x = ctx.taps
+        dx = _blur4_launch(
+            g.contiguous(), ky, kx, (3 - pad_y[0], 3 - pad_y[1]), (3 - pad_x[0], 3 - pad_x[1])
+        )
+        return dx, None, None, None, None
+
+
+class _Upblur4(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        x = x.contiguous()
+        check_cuda_f32("upblur4", x)
+        n, h, w, c = x.shape
+        y = torch.empty((n, 2 * h, 2 * w, c), device=x.device, dtype=x.dtype)
+        UPBLUR4(x.data_ptr(), y.data_ptr(), n, h, w, c, *k[::-1])
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _upblur4_adjoint(g, ctx.k), None
+
+
+def blur4(x: torch.Tensor, ky, kx, pad_y, pad_x) -> torch.Tensor:
+    """4x4 separable FIR on NHWC, out = H + pad0 + pad1 - 3 per axis."""
+    ky, kx = tuple(float(v) for v in ky), tuple(float(v) for v in kx)
+    pad_y, pad_x = tuple(int(v) for v in pad_y), tuple(int(v) for v in pad_x)
+    if x.device.type == "cpu":
+        return blur4_plain(x, ky, kx, pad_y, pad_x)
+    return _Blur4.apply(x, ky, kx, pad_y, pad_x)
+
+
+def upblur4(x: torch.Tensor, k) -> torch.Tensor:
+    """upfirdn2d(x, outer(k, k), up=2, pad=(2, 1)) on NHWC, out = 2H x 2W."""
+    k = tuple(float(v) for v in k)
+    if x.device.type == "cpu":
+        return upblur4_plain(x, k)
+    return _Upblur4.apply(x, k)
