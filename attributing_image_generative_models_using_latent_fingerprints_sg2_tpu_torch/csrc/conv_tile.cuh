@@ -1,6 +1,8 @@
-// Shared building block of conv3x3.cu and vgg_slice1.cu: one input-channel
-// chunk of a 3x3 convolution for an 8x8-pixel x 64-channel output tile,
-// computed by 256 threads from operands already in shared memory.
+// CUDA-core building block of the vgg_slice1 forward (vgg_slice1.cu): one
+// input-channel chunk of a 3x3 convolution for an 8x8-pixel x 64-channel
+// output tile, computed by 256 threads in float32 `fmaf`s from operands
+// already in shared memory.  (conv3x3.cu and the vgg_slice1 backward use the
+// tensor-core routine of tc_tile.cuh instead.)
 //
 // Thread layout: thread t owns output channels cg*4 .. cg*4+3 (cg = t % 16)
 // of the 4 pixels (prow, pcol0 .. pcol0+3) with prow = (t / 16) / 2 and

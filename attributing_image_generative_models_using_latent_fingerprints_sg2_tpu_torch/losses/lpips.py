@@ -9,7 +9,10 @@ The backbone runs through the port's kernels: slice 1 (conv1_1 + conv1_2)
 through ``vgg_slice1``, every square conv through ``conv3x3_relu``; the
 three channel-changing convs (conv2_1, conv3_1, conv4_1) are plain
 ``F.conv2d`` + ReLU, as the reference computes them outside Pallas.  On a
-CPU tensor the kernels' plain versions run instead.
+CPU tensor the kernels' plain versions run instead.  The tensor-core kernels
+read the weights in a packed form that ``ops/tf32.py`` caches per weight
+tensor, so the parameters here stay plain HWIO tensors and nothing is packed
+per call.
 
 The solver's distance head (:func:`distance_from_raw_features`) has the
 reference's analytic backward: it recomputes the normalize/diff chain from

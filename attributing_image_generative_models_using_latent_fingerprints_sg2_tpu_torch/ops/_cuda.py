@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so the build takes seconds).  The build happens on first
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together) and link into ONE shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the build
+takes seconds).  The build happens on first
 use, into ``<package>/_build/`` (git-ignored), under a name keyed by the
 sources' hash, so an edited source is rebuilt and concurrent processes
 never load a half-written file (each builds to a private name and renames).
@@ -29,7 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -62,13 +63,24 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if proc.stdout or proc.stderr:
-        print(proc.stdout + proc.stderr, end="")
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for obj, src in zip(objs, srcs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    if any(logs):
+        print("".join(logs), end="")
     os.replace(tmp, out)
     return out
 

@@ -3,8 +3,10 @@
 Counterpart of the reference's ``ops/vgg_slice_pallas.py::vgg_slice1``.  The
 intermediate ``relu1_1`` is never stored: the forward kernel keeps it in
 shared memory, and the backward kernel computes dx from (g, a2, x),
-recomputing conv1's sign.  dw and db are computed in plain PyTorch, and only
-when asked for.
+recomputing conv1's sign.  The backward runs its two adjoint convs on the
+tensor cores (three-pass TF32 split, float32 accuracy) from weights packed
+once per weight tensor by ``ops/tf32.py``.  dw and db are computed in plain
+PyTorch, and only when asked for.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ from __future__ import annotations
 import torch
 
 from ._cuda import INT, PTR, Kernel, check_cuda_f32, register
-from .vgg_cuda import conv3x3_plain, flip_io
+from .tf32 import flip_io, packed_weights
+from .vgg_cuda import conv3x3_plain
+
+BWD_TILE = 14  # dx tile of the backward kernel (csrc/vgg_slice1.cu)
 
 SLICE1_FWD = register(Kernel(
     "vgg_slice1_fwd", "fp_vgg_slice1_fwd_f32", [PTR] * 6 + [INT] * 3,
@@ -49,11 +54,50 @@ def slice1_forward_launch(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def slice1_backward_launch(g, a2, x, w1, b1, w2) -> torch.Tensor:
-    w1f, w2f = flip_io(w1), flip_io(w2)
-    check_cuda_f32("vgg_slice1", g, a2, x, w1, b1, w1f, w2f)
+    check_cuda_f32("vgg_slice1", g, a2, x, w1, b1, w2)
+    _check_shapes(x, w1, w2)
+    w1fp, w2fp = packed_weights(w1, 8, flip=True), packed_weights(w2, 64, flip=True)
     n, h, w, _ = x.shape
     dx = torch.empty_like(x)
-    SLICE1_BWD(*(t.data_ptr() for t in (g, a2, x, w1, b1, w1f, w2f, dx)), n, h, w)
+    SLICE1_BWD(*(t.data_ptr() for t in (g, a2, x, w1, b1, w1fp, w2fp, dx)), n, h, w)
+    return dx
+
+
+def vgg_slice1_backward_tiled(g, a2, x, w1, b1, w2, tile: int = BWD_TILE) -> torch.Tensor:
+    """dx of :func:`vgg_slice1_plain` computed as the backward kernel walks it,
+    in plain PyTorch: per ``tile`` x ``tile`` block of dx, dz2 = g * [a2 > 0] on
+    the tile plus a 2-pixel halo (zero outside the image), da1 = conv_T(dz2, w2)
+    on the tile plus 1 pixel, dz1 = da1 * [conv1(x) + b1 > 0] (zero outside the
+    image), dx = conv_T(dz1, w1) on the tile.  For the tests."""
+    n, h, w, _ = x.shape
+    w1f, w2f = flip_io(w1), flip_io(w2)
+    dx = torch.zeros_like(x)
+
+    def band(src, y0, x0, size):
+        """src[:, y0 : y0 + size, x0 : x0 + size] with zeros outside the image."""
+        out = src.new_zeros((n, size, size, src.shape[-1]))
+        ys, xs_ = max(y0, 0), max(x0, 0)
+        ye, xe = min(y0 + size, h), min(x0 + size, w)
+        if ye > ys and xe > xs_:
+            out[:, ys - y0:ye - y0, xs_ - x0:xe - x0] = src[:, ys:ye, xs_:xe]
+        return out
+
+    def valid_conv(v, wf):
+        """3x3 conv without padding: the halo is already in ``v``."""
+        y = torch.nn.functional.conv2d(v.permute(0, 3, 1, 2), wf.permute(3, 2, 0, 1))
+        return y.permute(0, 2, 3, 1)
+
+    ones = x.new_ones((n, h, w, 1))
+    for ty0 in range(0, h, tile):
+        for tx0 in range(0, w, tile):
+            dz2 = band(torch.where(a2 > 0, g, torch.zeros_like(g)), ty0 - 2, tx0 - 2, tile + 4)
+            da1 = valid_conv(dz2, w2f)
+            z1 = valid_conv(band(x, ty0 - 2, tx0 - 2, tile + 4), w1) + b1
+            inside = band(ones, ty0 - 1, tx0 - 1, tile + 2) > 0
+            dz1 = torch.where((z1 > 0) & inside, da1, torch.zeros_like(da1))
+            d = valid_conv(dz1, w1f)
+            ye, xe = min(ty0 + tile, h), min(tx0 + tile, w)
+            dx[:, ty0:ye, tx0:xe] = d[:, :ye - ty0, :xe - tx0]
     return dx
 
 

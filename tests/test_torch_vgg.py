@@ -17,6 +17,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.ops i
     vgg_slice_pallas as jslice,
 )
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.ops import (
+    tf32,
     vgg_cuda,
     vgg_slice_cuda,
 )
@@ -75,5 +76,5 @@ def test_flip_io_is_the_adjoint_conv():
     g = torch.from_numpy(_rand((1, 6, 6, 5), 11))
     w = torch.from_numpy(_rand((3, 3, 4, 5), 12))
     lhs = (vgg_cuda.conv3x3_plain(x, w) * g).sum()
-    rhs = (x * vgg_cuda.conv3x3_plain(g, vgg_cuda.flip_io(w))).sum()
+    rhs = (x * vgg_cuda.conv3x3_plain(g, tf32.flip_io(w))).sum()
     np.testing.assert_allclose(lhs.item(), rhs.item(), rtol=1e-4)
