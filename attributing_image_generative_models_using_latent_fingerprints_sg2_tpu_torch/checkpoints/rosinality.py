@@ -16,6 +16,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models.stylegan2 import channel_map, noise_shapes
+from ..utils.device import resolve_device
 from ..utils.tree import tree_to
 
 
@@ -116,8 +117,10 @@ def validate_generator(params: Mapping[str, Any], cfg: ModelConfig) -> None:
         raise ValueError(f"generator weights do not match the config (got, expected): {bad}")
 
 
-def load_generator(path: str, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """Rosinality ``.pt`` / ``.npz`` file -> the port's generator tree on ``device``."""
+def load_generator(path: str, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
+    """Rosinality ``.pt`` / ``.npz`` file -> the port's generator tree on ``device``:
+    the card unless the caller asks for ``"cpu"`` (``utils.device.resolve_device``)."""
+    device = resolve_device(device)
     return generator_params_from_state_dict(load_torch_state_dict(path), cfg, device)
 
 

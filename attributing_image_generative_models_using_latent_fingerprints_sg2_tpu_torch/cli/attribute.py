@@ -21,9 +21,10 @@ import torch
 from ..fingerprint import attribute as attr
 from ..fingerprint import pipeline as pl
 from ..losses.lpips import build_lpips_params
+from ..utils.device import resolve_device
 from ..utils.image import make_image, store_results
 from ..utils.io import make_run_dir, save_config, write_results
-from .common import build_parser, config_from_args, resolve_device
+from .common import build_parser, config_from_args
 
 
 @dataclasses.dataclass

@@ -10,8 +10,6 @@ from __future__ import annotations
 import argparse
 import os
 
-import torch
-
 from ..config import (
     AttackConfig,
     AttributionConfig,
@@ -103,17 +101,3 @@ def config_from_args(args: argparse.Namespace) -> Config:
         run=RunConfig(sample_size=args.sample_size, batch_size=args.batch_size,
                       save_dir=args.save_dir, seed=args.seed, device=args.device),
     )
-
-
-def resolve_device(name: str) -> torch.device:
-    """The run's device; CUDA must be present when asked for (no silent CPU
-    fallback).  Float32 stays float32: TF32 is switched off for cuDNN and
-    matmuls, so the plain convs and the kernels compute the same thing."""
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda: no CUDA device is available (pass --device cpu to "
-                             "run the plain PyTorch versions on the CPU)")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return device

@@ -17,9 +17,10 @@ import time
 import torch
 
 from ..fingerprint import pipeline as pl
+from ..utils.device import resolve_device
 from ..utils.image import make_image, store_results, watermark_images
 from ..utils.io import make_run_dir, save_config
-from .common import build_parser, config_from_args, resolve_device
+from .common import build_parser, config_from_args
 
 
 def main(argv=None) -> int:

@@ -7,15 +7,24 @@
 // every solve step's forward and backward.
 //
 // What bounds it on the H100: the 64 -> 64 conv's arithmetic (576
-// multiply-adds per output on the float32 CUDA cores), and, for an unfused
-// spelling, the bytes of the [B, 256, 256, 64] intermediate relu1_1 that
-// would be written and read back.  Design: relu1_1 (forward) and dz2, dz1
-// (backward) live only in shared memory.
-//   forward  A block owns an 8x8 output tile.  It loads x with a 2-pixel halo,
-//            computes a1 = relu(conv1(x) + b1) for the tile plus a 1-pixel halo
-//            into shared memory, zeroing a1 outside the image (conv2's zero
-//            padding), then runs conv2 + b2 + ReLU with the 64-channel tile
-//            routine of conv_tile.cuh, weights streamed in 16-channel chunks.
+// multiply-adds per output: 77.3 of the forward's 80.9 GFLOP at batch 16, 0.47
+// ms as a three-pass TF32 product on the tensor cores, 1.2 ms on the float32
+// CUDA cores), and, for an unfused spelling, the bytes of the [B, 256, 256, 64]
+// intermediate relu1_1 that would be written and read back.  Design: relu1_1
+// (forward) and dz2, dz1 (backward) live only in shared memory, and both
+// 64 -> 64 products run through the `wgmma` tile routine of tc_tile.cuh.
+//   forward  A 256-thread block (2 warpgroups, two blocks an SM, so one
+//            block's conv1 and epilogue run under the other's `wgmma`s) owns
+//            an 8 x 16 output tile.  It loads x with a 2-pixel halo; the CUDA
+//            cores compute a1 = relu(conv1(x) + b1) on the tile plus a 1-pixel
+//            halo (10 x 18, recompute 1.41x) straight into the band layout of
+//            tc_tile.cuh (two 32-channel chunks, 36-float pixel stride), zero
+//            outside the image (conv2's padding), each value one `fmaf` chain
+//            from b1 over (dy, dx, ci): the order the backward repeats for
+//            conv1's sign.  conv2 is 2 chunks x 9 taps of fp_tc_tap on that
+//            band, with the packed w2 streaming through a ring of three 16 KB
+//            stages that starts filling before conv1 does.  Epilogue as in
+//            conv3x3.cu: bias, ReLU, a lane shuffle, 16-byte stores.
 //   backward (redesigned for the tensor cores)  The 64 -> 64 adjoint conv is
 //            4.83 of the 5.28 GFLOP per image; with g and a2 at 16.8 MB each the
 //            bytes cost 0.16 ms per 16-image step and the flops 1.27 ms on the
@@ -34,23 +43,31 @@
 //            from 3 to 8 and the packed adjoint w1 (36 KB) resident in shared
 //            memory.  Neither relu1_1 nor dz1 nor dz2 reaches device memory.
 
-#include "conv_tile.cuh"
 #include "tc_tile.cuh"
 
 namespace {
 
-// ---- forward shared-memory layout (floats) ----
-constexpr int F_XW = FP_TILE + 4;                      // x band width (2-pixel halo)
-constexpr int F_XS = F_XW * F_XW * 3;                  // 432
-constexpr int F_W1 = 27 * 64;                          // 1728
-constexpr int F_A1 = FP_HALO_W * FP_HALO_W * 64;       // 6400
-constexpr int F_W2 = 9 * FP_KC * FP_CO_TILE;           // 9216
-constexpr int F_OFF_W1 = F_XS;
+// ---- forward: tile geometry and shared-memory layout (floats) ----
+constexpr int F_TILE_H = 8;                             // output tile: 8 x FP_TC_TILE_W pixels
+constexpr int F_BAND_H = F_TILE_H + 2;                  // a1 region, offset -1
+constexpr int F_BAND_W = FP_TC_TILE_W + 2;
+constexpr int F_XH = F_TILE_H + 4;                      // x region, offset -2
+constexpr int F_XW = FP_TC_TILE_W + 4;
+constexpr int F_THREADS = 256;
+constexpr int F_STAGES = 3;
+constexpr int F_STAGE_FLOATS = 2 * 64 * FP_TC_KC;       // hi + lo of one tap x chunk of w2
+constexpr int F_BAND_PIXELS = F_BAND_H * F_BAND_W;
+constexpr int F_BAND_FLOATS = F_BAND_PIXELS * FP_TC_CS; // one 32-channel chunk of a1
+constexpr int F_XS = F_XH * F_XW * 3;
+constexpr int F_W1 = 27 * 64;
+constexpr int F_OFF_BAND = F_STAGES * F_STAGE_FLOATS;   // ring first: 1024-byte aligned tiles
+constexpr int F_OFF_XS = F_OFF_BAND + 2 * F_BAND_FLOATS;
+constexpr int F_OFF_W1 = F_OFF_XS + F_XS;
 constexpr int F_OFF_B1 = F_OFF_W1 + F_W1;
-constexpr int F_OFF_A1 = F_OFF_B1 + 64;                // 2224: 16-byte aligned
-constexpr int F_OFF_W2 = F_OFF_A1 + F_A1;              // 8624: 16-byte aligned
-constexpr int F_FLOATS = F_OFF_W2 + F_W2;
-constexpr size_t F_BYTES = sizeof(float) * F_FLOATS;   // 71360
+constexpr int F_OFF_BARS = F_OFF_B1 + 64;
+constexpr size_t F_BYTES = 1024 + sizeof(float) * F_OFF_BARS + 2 * F_STAGES * sizeof(uint64_t);
+static_assert(F_OFF_BAND % 4 == 0 && F_OFF_W1 % 4 == 0 && F_OFF_BARS % 2 == 0, "alignment");
+static_assert(2 * (F_BYTES + 1024) <= 232448, "two blocks an SM");
 
 // ---- backward: tile geometry and shared-memory layout ----
 constexpr int B_TILE = 14;                              // dx tile
@@ -72,90 +89,145 @@ constexpr size_t B_BYTES = 1024 + sizeof(float) * B_OFF_BARS + (2 * B_STAGES + 1
 static_assert(B_R1 == FP_TC_TILE_W, "a warp's 16 fragment rows are one row of the da1 region");
 static_assert(B_OFF_BARS % 2 == 0 && B_OFF_BAND % 4 == 0, "alignment");
 
-__global__ void __launch_bounds__(FP_THREADS)
+// w1: HWIO [3,3,3,64]; w2p: w2 packed by ops/tf32.py::pack_conv_weights with an N tile of 64.
+__global__ void __launch_bounds__(F_THREADS, 2)
     slice1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                      const float* __restrict__ b1, const float* __restrict__ w2,
+                      const float* __restrict__ b1, const float* __restrict__ w2p,
                       const float* __restrict__ b2, float* __restrict__ y, int h, int wd) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
+  extern __shared__ uint8_t smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw + ((1024 - (fp_smem_u32(smem_raw) & 1023)) & 1023));
+  float* ring = smem;
+  float* band = smem + F_OFF_BAND;
+  float* xs = smem + F_OFF_XS;
   float* w1s = smem + F_OFF_W1;
   float* b1s = smem + F_OFF_B1;
-  float* a1 = smem + F_OFF_A1;
-  float* w2s = smem + F_OFF_W2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + F_OFF_BARS);
+  uint64_t* empty = full + F_STAGES;
 
-  const int tiles_x = (wd + FP_TILE - 1) / FP_TILE;
-  const int ty0 = (blockIdx.x / tiles_x) * FP_TILE;
-  const int tx0 = (blockIdx.x % tiles_x) * FP_TILE;
+  const int tiles_x = (wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W;
+  const int ty0 = (blockIdx.x / tiles_x) * F_TILE_H;
+  const int tx0 = (blockIdx.x % tiles_x) * FP_TC_TILE_W;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const float* xb = x + (int64_t)b * h * wd * 3;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t img = (int64_t)b * h * wd;
+  constexpr int ITEMS = 18;  // 2 channel chunks x 9 taps
+  constexpr uint32_t STAGE_BYTES = sizeof(float) * F_STAGE_FLOATS;
+  const uint8_t* w2src = reinterpret_cast<const uint8_t*>(w2p);
 
-  for (int i = tid; i < F_XS; i += FP_THREADS) {
+  if (tid == 0) fp_ring_init(full, empty, F_STAGES, F_THREADS / 32);
+  __syncthreads();
+  if (tid == 0) {
+    for (int j = 0; j < F_STAGES - 1; ++j)
+      fp_ring_issue(j, F_STAGES, reinterpret_cast<uint8_t*>(ring), w2src, STAGE_BYTES, full, empty);
+  }
+
+  // x on the 12 x 20 region at offset -2, zero outside the image
+  for (int i = tid; i < F_XS; i += F_THREADS) {
     const int k = i % 3;
     const int p = i / 3;
     const int iy = ty0 - 2 + p / F_XW;
     const int ix = tx0 - 2 + p % F_XW;
     float v = 0.f;
-    if (iy >= 0 && iy < h && ix >= 0 && ix < wd) v = xb[((int64_t)iy * wd + ix) * 3 + k];
+    if (iy >= 0 && iy < h && ix >= 0 && ix < wd) v = x[(img + (int64_t)iy * wd + ix) * 3 + k];
     xs[i] = v;
   }
-  for (int i = tid; i < F_W1; i += FP_THREADS) w1s[i] = w1[i];
+  for (int i = tid; i < F_W1; i += F_THREADS) w1s[i] = w1[i];
   if (tid < 64) b1s[tid] = b1[tid];
   __syncthreads();
 
-  // a1 on the 10x10 region at offset -1, zero outside the image
-  for (int i = tid; i < F_A1; i += FP_THREADS) {
-    const int co = i % 64;
-    const int p = i / 64;
-    const int r = p / FP_HALO_W;
-    const int q = p % FP_HALO_W;
+  // a1 = relu(conv1(x) + b1) on the 10 x 18 region at offset -1, zero outside the image,
+  // into the band layout.  One item = one pixel x 16 channels; a warp's lanes are
+  // consecutive pixels of one channel group, so its w1 reads are broadcasts.
+  for (int i = tid; i < 4 * F_BAND_PIXELS; i += F_THREADS) {
+    const int p = i % F_BAND_PIXELS;
+    const int cq = i / F_BAND_PIXELS;
+    const int r = p / F_BAND_W;
+    const int q = p % F_BAND_W;
     const int ay = ty0 - 1 + r;
     const int ax = tx0 - 1 + q;
-    float v = 0.f;
+    float z[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) z[e] = 0.f;
     if (ay >= 0 && ay < h && ax >= 0 && ax < wd) {
-      float z = b1s[co];
+      float xv[27];
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
+        for (int k = 0; k < 9; ++k) xv[dy * 9 + k] = xs[((r + dy) * F_XW + q) * 3 + k];
 #pragma unroll
-          for (int ci = 0; ci < 3; ++ci)
-            z = fmaf(xs[((r + dy) * F_XW + q + dx) * 3 + ci], w1s[((dy * 3 + dx) * 3 + ci) * 64 + co], z);
-      v = fmaxf(z, 0.f);
+      for (int e = 0; e < 16; ++e) z[e] = b1s[16 * cq + e];
+#pragma unroll
+      for (int k = 0; k < 27; ++k) {
+#pragma unroll
+        for (int e = 0; e < 16; e += 4) {
+          const float4 wv = *reinterpret_cast<const float4*>(w1s + k * 64 + 16 * cq + e);
+          z[e] = fmaf(xv[k], wv.x, z[e]);
+          z[e + 1] = fmaf(xv[k], wv.y, z[e + 1]);
+          z[e + 2] = fmaf(xv[k], wv.z, z[e + 2]);
+          z[e + 3] = fmaf(xv[k], wv.w, z[e + 3]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) z[e] = fmaxf(z[e], 0.f);
     }
-    a1[i] = v;
+    float* dst = band + (cq >> 1) * F_BAND_FLOATS + p * FP_TC_CS + 16 * (cq & 1);
+#pragma unroll
+    for (int e = 0; e < 16; e += 4)
+      *reinterpret_cast<float4*>(dst + e) = make_float4(z[e], z[e + 1], z[e + 2], z[e + 3]);
   }
   __syncthreads();
 
-  const int cg = tid & 15;
-  const int pg = tid >> 4;
-  const int prow = pg >> 1;
-  const int pcol0 = (pg & 1) * 4;
-  float acc[4][4];
+  // a2 = conv(a1, w2) on the 8 x 16 tile: the thread's two pixels are tile row `warp`,
+  // columns g and g + 8
+  float acc[32], acc_lo[32];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
-  for (int ci0 = 0; ci0 < 64; ci0 += FP_KC) {
-    fp_load_weight_chunk(w2s, w2, 64, 64, ci0, 0);
-    __syncthreads();
-    fp_conv_tile_chunk(a1, 64, ci0, w2s, prow, pcol0, cg, acc);
-    __syncthreads();
+  for (int i = 0; i < 32; ++i) acc[i] = acc_lo[i] = 0.f;
+  FpFrag fa, fb;
+  const int frag = (warp * F_BAND_W + g) * FP_TC_CS + 8 * t;
+  const uint32_t ring_addr = fp_smem_u32(ring);
+#pragma unroll 1
+  for (int i = 0; i < ITEMS; ++i) {
+    const int slot = i % F_STAGES;
+    fp_mbar_wait(full + slot, (i / F_STAGES) & 1);
+    const int tap = i % 9;
+    const float* px0 =
+        band + (i / 9) * F_BAND_FLOATS + frag + ((tap / 3) * F_BAND_W + tap % 3) * FP_TC_CS;
+    const uint32_t b_hi = ring_addr + slot * STAGE_BYTES;
+    fp_tc_tap(px0, px0 + 8 * FP_TC_CS, b_hi, b_hi + STAGE_BYTES / 2, acc, acc_lo, fa, fb, [&]() {
+      // item i - 1 is done in this warp: release its stage; one thread refills it
+      if (i > 0 && lane == 0) fp_mbar_arrive(empty + (i - 1) % F_STAGES);
+      if (tid == 0 && i + F_STAGES - 1 < ITEMS)
+        fp_ring_issue(i + F_STAGES - 1, F_STAGES, reinterpret_cast<uint8_t*>(ring), w2src,
+                      STAGE_BYTES, full, empty);
+      __syncwarp();
+    });
   }
-
-  const int oy = ty0 + prow;
-  if (oy >= h) return;
-  const int co = cg * 4;
+  fp_wgmma_wait<0>();
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int ox = tx0 + pcol0 + p;
-    if (ox >= wd) continue;
-    float4 o;
-    o.x = fmaxf(acc[p][0] + b2[co + 0], 0.f);
-    o.y = fmaxf(acc[p][1] + b2[co + 1], 0.f);
-    o.z = fmaxf(acc[p][2] + b2[co + 2], 0.f);
-    o.w = fmaxf(acc[p][3] + b2[co + 3], 0.f);
-    *reinterpret_cast<float4*>(y + (((int64_t)b * h + oy) * wd + ox) * 64 + co) = o;
+  for (int i = 0; i < 32; ++i) acc[i] += acc_lo[i];
+
+  // epilogue: lanes t and t ^ 1 trade halves so that each owns 4 consecutive channels
+  const int oy = ty0 + warp;
+  const bool odd = t & 1;
+  const int ox = tx0 + g + (odd ? 8 : 0);
+  const bool store = oy < h && ox < wd;
+  float* yrow = y + (img + (int64_t)oy * wd + ox) * 64 + 2 * (t & 2);
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    const float c0 = acc[4 * jn], c1 = acc[4 * jn + 1], c2 = acc[4 * jn + 2], c3 = acc[4 * jn + 3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c0 : c2, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c1 : c3, 1);
+    float4 o = odd ? make_float4(r0, r1, c2, c3) : make_float4(c0, c1, r0, r1);
+    const float4 bv = *reinterpret_cast<const float4*>(b2 + 2 * (t & 2) + 8 * jn);
+    o.x = fmaxf(o.x + bv.x, 0.f);
+    o.y = fmaxf(o.y + bv.y, 0.f);
+    o.z = fmaxf(o.z + bv.z, 0.f);
+    o.w = fmaxf(o.w + bv.w, 0.f);
+    if (store) *reinterpret_cast<float4*>(yrow + 8 * jn) = o;
   }
 }
 
@@ -345,15 +417,15 @@ __global__ void __launch_bounds__(B_THREADS, 1)
 
 extern "C" {
 
-int fp_vgg_slice1_fwd_f32(const float* x, const float* w1, const float* b1, const float* w2,
+int fp_vgg_slice1_fwd_f32(const float* x, const float* w1, const float* b1, const float* w2p,
                           const float* b2, float* y, int n, int h, int wd, void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(slice1_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = ((h + FP_TILE - 1) / FP_TILE) * ((wd + FP_TILE - 1) / FP_TILE);
+  const int tiles = ((h + F_TILE_H - 1) / F_TILE_H) * ((wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W);
   dim3 grid(tiles, 1, n);
-  slice1_fwd_kernel<<<grid, FP_THREADS, F_BYTES, (cudaStream_t)stream>>>(x, w1, b1, w2, b2, y, h,
+  slice1_fwd_kernel<<<grid, F_THREADS, F_BYTES, (cudaStream_t)stream>>>(x, w1, b1, w2p, b2, y, h,
                                                                           wd);
   return (int)cudaGetLastError();
 }

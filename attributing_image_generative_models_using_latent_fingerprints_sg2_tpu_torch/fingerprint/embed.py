@@ -51,8 +51,8 @@ def build_basis(pca: PCABasis, fp: FingerprintConfig) -> FingerprintBasis:
     )
 
 
-def sample_key_bits(key_len: int, batch: int, generator: Optional[torch.Generator] = None,
-                    device="cpu") -> torch.Tensor:
+def sample_key_bits(key_len: int, batch: int, generator: Optional[torch.Generator],
+                    device) -> torch.Tensor:
     """k ~ U{0,1}^K as float [B, K]."""
     return torch.randint(0, 2, (batch, key_len), generator=generator).float().to(device)
 

@@ -18,6 +18,7 @@ import torch
 from ..config import FingerprintConfig, ModelConfig
 from ..losses import lpips as lpips_mod
 from ..models import stylegan2 as sg2
+from ..utils.device import resolve_device
 from .embed import FingerprintBasis, build_basis, embed, sample_alpha, sample_key_bits
 from .pca import PCABasis, perform_pca_for_params
 
@@ -30,8 +31,8 @@ class Pipeline:
     basis: FingerprintBasis
     pca: PCABasis
     noise: List[torch.Tensor]
+    device: torch.device
     lpips_params: Optional[Any] = None
-    device: torch.device = torch.device("cpu")
 
 
 def build_pipeline(
@@ -39,7 +40,7 @@ def build_pipeline(
     fpcfg: FingerprintConfig,
     *,
     generator: Optional[torch.Generator] = None,
-    device="cpu",
+    device="cuda",
     gen_params: Any = None,
     ckpt_path: Optional[str] = None,
     lpips_params: Any = None,
@@ -49,12 +50,14 @@ def build_pipeline(
 ) -> Pipeline:
     """Load or draw the generator, run PCA on ``device``, slice the basis,
     draw the fixed synthesis noise, and make random LPIPS if wanted.
+    ``device`` is the card unless the caller asks for ``"cpu"``; without a
+    CUDA device the default raises (``utils.device.resolve_device``).
 
     Draw order from ``generator``: generator weights, PCA latents, noise,
     LPIPS weights (each skipped when given)."""
     if mcfg.model != "sg2":
         raise NotImplementedError(f"--model {mcfg.model}: not yet ported (sg2 only)")
-    device = torch.device(device)
+    device = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     if gen_params is None:
         if ckpt_path is not None:
@@ -94,7 +97,7 @@ def generate_fingerprinted(
     if alpha is None:
         alpha = sample_alpha(pipe.basis, batch, generator)
     if bits is None:
-        bits = sample_key_bits(pipe.fpcfg.key_len, batch, generator)
+        bits = sample_key_bits(pipe.fpcfg.key_len, batch, generator, pipe.device)
     alpha = torch.as_tensor(alpha, dtype=torch.float32).to(pipe.device)
     bits = torch.as_tensor(bits, dtype=torch.float32).to(pipe.device)
     w0, wx = embed(pipe.basis, alpha, bits)

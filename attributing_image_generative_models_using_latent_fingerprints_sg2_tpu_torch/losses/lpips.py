@@ -31,6 +31,7 @@ import torch
 from ..ops.pool import maxpool2x2
 from ..ops.vgg_cuda import conv3x3_plain, conv3x3_relu
 from ..ops.vgg_slice_cuda import vgg_slice1
+from ..utils.device import resolve_device
 from ..utils.tree import tree_to
 
 VGG16_PLAN: Tuple[Any, ...] = (
@@ -134,7 +135,7 @@ def distance_from_raw_features(params, raw_feats, target_norm_feats, eps: float 
     return total
 
 
-def init_lpips_params(generator: Optional[torch.Generator] = None, device="cpu") -> Dict[str, Any]:
+def init_lpips_params(generator: Optional[torch.Generator], device) -> Dict[str, Any]:
     """Random-backbone LPIPS (He-init convs, uniform lin heads): the
     degraded-but-valid mode when no pretrained VGG16 weights are on disk."""
     vgg, cin = [], 3
@@ -183,10 +184,12 @@ def _load_state_dict(path: str) -> Dict[str, np.ndarray]:
     return {k: v.detach().float().numpy() for k, v in sd.items()}
 
 
-def build_lpips_params(generator: Optional[torch.Generator] = None, device="cpu",
+def build_lpips_params(generator: Optional[torch.Generator] = None, device="cuda",
                        vgg_path: Optional[str] = None, lin_path: Optional[str] = None):
     """Random LPIPS, with the torchvision VGG16 backbone and/or the LPIPS
-    lin heads (``vgg.pth``) loaded from disk where given."""
+    lin heads (``vgg.pth``) loaded from disk where given.  On the card unless
+    the caller asks for ``"cpu"`` (``utils.device.resolve_device``)."""
+    device = resolve_device(device)
     params = init_lpips_params(generator, device)
     if vgg_path is not None:
         params["vgg"] = tree_to(vgg16_params_from_torch_state_dict(_load_state_dict(vgg_path)), device)

@@ -165,7 +165,7 @@ def generate(params: Params, styles: Sequence[torch.Tensor], cfg: ModelConfig, *
     return synthesis(params, latent, noise, blur_kernel=cfg.blur_kernel)
 
 
-def make_noise(size: int, generator: torch.Generator, device="cpu") -> List[torch.Tensor]:
+def make_noise(size: int, generator: torch.Generator, device) -> List[torch.Tensor]:
     """Per-layer noise maps [1, res, res, 1], drawn from ``generator`` (CPU)."""
     return [torch.randn(s, generator=generator).to(device) for s in noise_shapes(size)]
 
@@ -193,7 +193,7 @@ def _init_to_rgb(g, in_ch, style_dim) -> Params:
     return p
 
 
-def init_generator_params(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> Params:
+def init_generator_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     """Random generator weights (the reference constructor's distributions),
     drawn on the CPU from ``generator`` and moved to ``device``."""
     g = generator

@@ -25,7 +25,8 @@ PEAK_BYTES = 3.35e12    # B/s, HBM3
 CONV_RATE = max(PEAK_F32, PEAK_TF32 / 3)  # float32-accurate matrix product
 
 # The 256px main path: (C, H) of every launch of one solve step's forward.
-BLUR4_SHAPES = ((512, 8), (512, 16), (512, 32), (512, 64), (256, 128), (128, 256))  # output H
+# blur4: output H of the forward (input H + 1, pads (1, 1)) = input H of its adjoint (pads (2, 2))
+BLUR4_SHAPES = ((512, 8), (512, 16), (512, 32), (512, 64), (256, 128), (128, 256))
 UPBLUR4_SHAPES = (4, 8, 16, 32, 64, 128)                                             # input H, C = 3
 # conv3x3_relu: (C, H, launches per forward); the backward's dx repeats each launch.
 CONV3X3_SHAPES = ((128, 128, 1), (256, 64, 2), (512, 32, 2), (512, 16, 3))
@@ -41,9 +42,12 @@ def _counts(flops: float, nbytes: float, kind: str) -> Dict[str, object]:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def blur4(n: int, c: int, oh: int, ow: int) -> Dict[str, object]:
-    """4x4 FIR, input (oh + 1) x (ow + 1) with pads (1, 1): 16 taps an output."""
-    return _counts(2.0 * 16 * n * oh * ow * c, 4.0 * n * c * ((oh + 1) * (ow + 1) + oh * ow), "fir")
+def blur4(n: int, c: int, oh: int, ow: int, pads: Tuple[int, int] = (1, 1)) -> Dict[str, object]:
+    """4x4 FIR with ``pads`` per axis, so the input is (oh + 3 - p0 - p1) x
+    (ow + 3 - p0 - p1): (1, 1) is the forward (in = out + 1), (2, 2) its adjoint
+    (in = out - 1).  16 taps an output, taps that meet the padding included."""
+    grow = 3 - pads[0] - pads[1]
+    return _counts(2.0 * 16 * n * oh * ow * c, 4.0 * n * c * ((oh + grow) * (ow + grow) + oh * ow), "fir")
 
 
 def upblur4(n: int, c: int, h: int, w: int) -> Dict[str, object]:
@@ -73,6 +77,8 @@ def main_path(name: str, n: int) -> Sequence[Tuple[str, Dict[str, object]]]:
     on the 256px main path at batch ``n``."""
     if name == "blur4":
         return [(f"C{c}_H{h}", blur4(n, c, h, h)) for c, h in BLUR4_SHAPES]
+    if name == "blur4_adj":  # the backward's launches of blur4: H -> H + 1
+        return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2))) for c, h in BLUR4_SHAPES]
     if name == "upblur4":
         return [(f"C3_H{h}", upblur4(n, 3, h, h)) for h in UPBLUR4_SHAPES]
     if name == "conv3x3_relu":

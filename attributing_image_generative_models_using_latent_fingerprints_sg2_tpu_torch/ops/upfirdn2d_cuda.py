@@ -59,6 +59,34 @@ def blur4_plain(x, ky, kx, pad_y, pad_x) -> torch.Tensor:
     return depthwise_correlate(x, k, (pad_y[0], pad_y[1], pad_x[0], pad_x[1]))
 
 
+def blur4_strips(x, ky, kx, pad_y, pad_x, rows: int = 64, vec: int = 4) -> torch.Tensor:
+    """:func:`blur4_plain` computed as the kernel walks it, in plain PyTorch:
+    strips of ``rows`` output rows, each reading rows + 3 input rows; per input
+    row the 4-tap horizontal sum (taps summed left to right), then the vertical
+    sum over a 4-row sliding window (top to bottom); channels in groups of
+    ``vec`` with a scalar remainder; zeros outside the input.  For the tests."""
+    n, h, w, c = x.shape
+    fy, fx = tuple(ky)[::-1], tuple(kx)[::-1]
+    oh, ow = h + pad_y[0] + pad_y[1] - 3, w + pad_x[0] + pad_x[1] - 3
+    y = x.new_zeros((n, oh, ow, c))
+    cmain = c - c % vec
+    groups = [slice(c0, c0 + vec) for c0 in range(0, cmain, vec)] + [slice(c0, c0 + 1) for c0 in range(cmain, c)]
+    for ch in groups:
+        width = ch.stop - ch.start
+        for oy0 in range(0, oh, rows):
+            for ox in range(ow):
+                win = [x.new_zeros((n, width)) for _ in range(4)]
+                for r in range(min(rows, oh - oy0) + 3):
+                    iy = oy0 - pad_y[0] + r
+                    taps = [x[:, iy, ox - pad_x[0] + j, ch]
+                            if 0 <= iy < h and 0 <= ox - pad_x[0] + j < w else x.new_zeros((n, width))
+                            for j in range(4)]
+                    win = win[1:] + [fx[0] * taps[0] + fx[1] * taps[1] + fx[2] * taps[2] + fx[3] * taps[3]]
+                    if r >= 3:
+                        y[:, oy0 + r - 3, ox, ch] = fy[0] * win[0] + fy[1] * win[1] + fy[2] * win[2] + fy[3] * win[3]
+    return y
+
+
 def upblur4_plain(x, k) -> torch.Tensor:
     """upfirdn2d(x, outer(k, k), up=2, pad=(2, 1)): zero-stuff, pad, correlate."""
     n, h, w, c = x.shape
@@ -79,7 +107,7 @@ def _upblur4_adjoint(g: torch.Tensor, k) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _blur4_launch(x, fy, fx, pad_y, pad_x) -> torch.Tensor:
+def blur4_launch(x, fy, fx, pad_y, pad_x) -> torch.Tensor:
     """Launch with FLIPPED taps fy/fx (correlation taps)."""
     check_cuda_f32("blur4", x)
     n, h, w, c = x.shape
@@ -96,12 +124,12 @@ class _Blur4(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ky, kx, pad_y, pad_x):
         ctx.taps = (ky, kx, pad_y, pad_x)
-        return _blur4_launch(x.contiguous(), ky[::-1], kx[::-1], pad_y, pad_x)
+        return blur4_launch(x.contiguous(), ky[::-1], kx[::-1], pad_y, pad_x)
 
     @staticmethod
     def backward(ctx, g):
         ky, kx, pad_y, pad_x = ctx.taps
-        dx = _blur4_launch(
+        dx = blur4_launch(
             g.contiguous(), ky, kx, (3 - pad_y[0], 3 - pad_y[1]), (3 - pad_x[0], 3 - pad_x[1])
         )
         return dx, None, None, None, None

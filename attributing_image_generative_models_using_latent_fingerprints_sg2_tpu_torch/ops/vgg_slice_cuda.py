@@ -3,10 +3,10 @@
 Counterpart of the reference's ``ops/vgg_slice_pallas.py::vgg_slice1``.  The
 intermediate ``relu1_1`` is never stored: the forward kernel keeps it in
 shared memory, and the backward kernel computes dx from (g, a2, x),
-recomputing conv1's sign.  The backward runs its two adjoint convs on the
-tensor cores (three-pass TF32 split, float32 accuracy) from weights packed
-once per weight tensor by ``ops/tf32.py``.  dw and db are computed in plain
-PyTorch, and only when asked for.
+recomputing conv1's sign.  The forward's 64 -> 64 conv and the backward's two
+adjoint convs run on the tensor cores (three-pass TF32 split, float32
+accuracy) from weights packed once per weight tensor by ``ops/tf32.py``.  dw
+and db are computed in plain PyTorch, and only when asked for.
 """
 
 from __future__ import annotations
@@ -14,10 +14,11 @@ from __future__ import annotations
 import torch
 
 from ._cuda import INT, PTR, Kernel, check_cuda_f32, register
-from .tf32 import flip_io, packed_weights
+from .tf32 import conv3x3_three_pass, flip_io, packed_weights
 from .vgg_cuda import conv3x3_plain
 
-BWD_TILE = 14  # dx tile of the backward kernel (csrc/vgg_slice1.cu)
+FWD_TILE = (8, 16)  # output tile (rows, columns) of the forward kernel (csrc/vgg_slice1.cu)
+BWD_TILE = 14       # dx tile of the backward kernel
 
 SLICE1_FWD = register(Kernel(
     "vgg_slice1_fwd", "fp_vgg_slice1_fwd_f32", [PTR] * 6 + [INT] * 3,
@@ -49,7 +50,7 @@ def slice1_forward_launch(x, w1, b1, w2, b2) -> torch.Tensor:
     _check_shapes(x, w1, w2)
     n, h, w, _ = x.shape
     y = torch.empty((n, h, w, 64), device=x.device, dtype=x.dtype)
-    SLICE1_FWD(*(t.data_ptr() for t in (x, w1, b1, w2, b2, y)), n, h, w)
+    SLICE1_FWD(*(t.data_ptr() for t in (x, w1, b1, packed_weights(w2, 64), b2, y)), n, h, w)
     return y
 
 
@@ -63,6 +64,44 @@ def slice1_backward_launch(g, a2, x, w1, b1, w2) -> torch.Tensor:
     return dx
 
 
+def _band(src: torch.Tensor, y0: int, x0: int, rows: int, cols: int) -> torch.Tensor:
+    """src[:, y0 : y0 + rows, x0 : x0 + cols] with zeros outside the image."""
+    n, h, w, c = src.shape
+    out = src.new_zeros((n, rows, cols, c))
+    ys, xs = max(y0, 0), max(x0, 0)
+    ye, xe = min(y0 + rows, h), min(x0 + cols, w)
+    if ye > ys and xe > xs:
+        out[:, ys - y0:ye - y0, xs - x0:xe - x0] = src[:, ys:ye, xs:xe]
+    return out
+
+
+def _valid_conv(v: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
+    """3x3 conv without padding: the halo is already in ``v``."""
+    y = torch.nn.functional.conv2d(v.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+def vgg_slice1_forward_tiled(x, w1, b1, w2, b2, tile=FWD_TILE) -> torch.Tensor:
+    """:func:`vgg_slice1_plain` computed as the forward kernel walks it, in plain
+    PyTorch: per ``tile`` (rows, columns) of the output, a1 = relu(conv1(x) + b1)
+    on the tile plus a 1-pixel halo from x with a 2-pixel halo, zero outside the
+    image (conv2's padding), then conv2 as the three TF32 products of split
+    operands (``conv3x3_three_pass``) + b2 + ReLU.  For the tests."""
+    n, h, w, _ = x.shape
+    th, tw = tile
+    y = x.new_zeros((n, h, w, 64))
+    ones = x.new_ones((n, h, w, 1))
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, w, tw):
+            a1 = torch.relu(_valid_conv(_band(x, ty0 - 2, tx0 - 2, th + 4, tw + 4), w1) + b1)
+            a1 = a1 * _band(ones, ty0 - 1, tx0 - 1, th + 2, tw + 2)
+            # the halo is in a1 already: keep the interior of the padded product
+            a2 = torch.relu(conv3x3_three_pass(a1, w2, b2)[:, 1:-1, 1:-1])
+            ye, xe = min(ty0 + th, h), min(tx0 + tw, w)
+            y[:, ty0:ye, tx0:xe] = a2[:, :ye - ty0, :xe - tx0]
+    return y
+
+
 def vgg_slice1_backward_tiled(g, a2, x, w1, b1, w2, tile: int = BWD_TILE) -> torch.Tensor:
     """dx of :func:`vgg_slice1_plain` computed as the backward kernel walks it,
     in plain PyTorch: per ``tile`` x ``tile`` block of dx, dz2 = g * [a2 > 0] on
@@ -73,29 +112,16 @@ def vgg_slice1_backward_tiled(g, a2, x, w1, b1, w2, tile: int = BWD_TILE) -> tor
     w1f, w2f = flip_io(w1), flip_io(w2)
     dx = torch.zeros_like(x)
 
-    def band(src, y0, x0, size):
-        """src[:, y0 : y0 + size, x0 : x0 + size] with zeros outside the image."""
-        out = src.new_zeros((n, size, size, src.shape[-1]))
-        ys, xs_ = max(y0, 0), max(x0, 0)
-        ye, xe = min(y0 + size, h), min(x0 + size, w)
-        if ye > ys and xe > xs_:
-            out[:, ys - y0:ye - y0, xs_ - x0:xe - x0] = src[:, ys:ye, xs_:xe]
-        return out
-
-    def valid_conv(v, wf):
-        """3x3 conv without padding: the halo is already in ``v``."""
-        y = torch.nn.functional.conv2d(v.permute(0, 3, 1, 2), wf.permute(3, 2, 0, 1))
-        return y.permute(0, 2, 3, 1)
-
     ones = x.new_ones((n, h, w, 1))
+    masked_g = torch.where(a2 > 0, g, torch.zeros_like(g))
     for ty0 in range(0, h, tile):
         for tx0 in range(0, w, tile):
-            dz2 = band(torch.where(a2 > 0, g, torch.zeros_like(g)), ty0 - 2, tx0 - 2, tile + 4)
-            da1 = valid_conv(dz2, w2f)
-            z1 = valid_conv(band(x, ty0 - 2, tx0 - 2, tile + 4), w1) + b1
-            inside = band(ones, ty0 - 1, tx0 - 1, tile + 2) > 0
+            dz2 = _band(masked_g, ty0 - 2, tx0 - 2, tile + 4, tile + 4)
+            da1 = _valid_conv(dz2, w2f)
+            z1 = _valid_conv(_band(x, ty0 - 2, tx0 - 2, tile + 4, tile + 4), w1) + b1
+            inside = _band(ones, ty0 - 1, tx0 - 1, tile + 2, tile + 2) > 0
             dz1 = torch.where((z1 > 0) & inside, da1, torch.zeros_like(da1))
-            d = valid_conv(dz1, w1f)
+            d = _valid_conv(dz1, w1f)
             ye, xe = min(ty0 + tile, h), min(tx0 + tile, w)
             dx[:, ty0:ye, tx0:xe] = d[:, :ye - ty0, :xe - tx0]
     return dx

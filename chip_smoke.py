@@ -22,8 +22,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                2 and at batch 16 (the 16-chain main path): its time, the plain
                version's, the time of the PyTorch call for the same function
                (``library_ms``), and the card's bound for the work
-               (``ops/roofline.py``); conv3x3_relu (forward and dx) and the
-               vgg_slice1 backward are held against plain again at batch 16.
+               (``ops/roofline.py``).  blur4 is launched at its forward shapes
+               and at its adjoint shapes (``_adj``: pads (2, 2), unflipped
+               taps, H -> H + 1: the backward's six launches a step).  blur4
+               (both), conv3x3_relu (forward and dx), the vgg_slice1 forward
+               and its backward are held against plain again at both batches.
 3. recovery -- planted keys recovered through the kernels on a tiny
                generator (32px, mse loss, 300 steps, 4 restarts, 3 samples).
 4. generate -- ``cli.generate`` at full width (256px, style_dim 512, n_mlp 8,
@@ -224,10 +227,21 @@ def launch_cases(torch, mods, n, rnd):
     for c, h in roof.BLUR4_SHAPES:
         x = rnd(n, h + 1, h + 1, c)
         wl = torch.outer(kt, kt).flip(0, 1).expand(c, 1, 4, 4).contiguous()
-        cases.append(("blur4", f"C{c}_H{h}", lambda x=x: up_cuda.blur4(x, k1, k1, (1, 1), (1, 1)),
-                      lambda x=x: up_cuda.blur4_plain(x, k1, k1, (1, 1), (1, 1)),
+        kf = lambda x=x: up_cuda.blur4_launch(x, k1[::-1], k1[::-1], (1, 1), (1, 1))
+        pf = lambda x=x: up_cuda.blur4_plain(x, k1, k1, (1, 1), (1, 1))
+        cases.append(("blur4", f"C{c}_H{h}", kf, pf,
                       lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=1, groups=c),
-                      roof.blur4(n, c, h, h), None))
+                      roof.blur4(n, c, h, h), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+    for c, h in roof.BLUR4_SHAPES:
+        # the backward's launch: the cotangent [n, h, h, c] through the same kernel with
+        # unflipped taps and pads (3 - 1, 3 - 1); blur4_plain flips the taps it is given
+        x = rnd(n, h, h, c)
+        wl = torch.outer(kt, kt).expand(c, 1, 4, 4).contiguous()
+        kf = lambda x=x: up_cuda.blur4_launch(x, k1, k1, (2, 2), (2, 2))
+        pf = lambda x=x: up_cuda.blur4_plain(x, k1[::-1], k1[::-1], (2, 2), (2, 2))
+        cases.append(("blur4", f"C{c}_H{h}_adj", kf, pf,
+                      lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=2, groups=c),
+                      roof.blur4(n, c, h + 1, h + 1, (2, 2)), lambda kf=kf, pf=pf: (kf(), pf(), None)))
     for h in roof.UPBLUR4_SHAPES:
         x = rnd(n, h, h, 3)
         wl = torch.outer(kt, kt).expand(3, 1, 4, 4).contiguous()
@@ -257,9 +271,10 @@ def launch_cases(torch, mods, n, rnd):
           rnd(3, 3, 64, 64, scale=(2.0 / 576) ** 0.5), rnd(64, scale=0.1))
     hs = roof.SLICE1_H
     x, cot = rnd(n, hs, hs, 3), rnd(n, hs, hs, 64)
-    cases.append(("vgg_slice1_fwd", f"C3_H{hs}", lambda: slice_cuda.slice1_forward_launch(x, *ws),
-                  lambda: slice_cuda.vgg_slice1_plain(x, *ws), lambda: slice_cuda.vgg_slice1_plain(x, *ws),
-                  roof.slice1_fwd(n, hs, hs), None))
+    kf, pf = (lambda: slice_cuda.slice1_forward_launch(x, *ws)), (lambda: slice_cuda.vgg_slice1_plain(x, *ws))
+    # every element is compared: a ReLU output needs no mask
+    cases.append(("vgg_slice1_fwd", f"C3_H{hs}", kf, pf, pf, roof.slice1_fwd(n, hs, hs),
+                  lambda: (kf(), pf(), None)))
     xr = x.detach().requires_grad_(True)
     with torch.enable_grad():
         yp = slice_cuda.vgg_slice1_plain(xr, *ws)
@@ -285,7 +300,8 @@ def launch_cases(torch, mods, n, rnd):
 
 def phase_launch_times(torch, mods, per_kernel):
     """Launch-only times at batch 2 and 16 beside bound, plain and library
-    times; the batch-16 sums over a kernel's shapes go into ``per_kernel``."""
+    times; the batch-16 sums over a kernel's shapes go into ``per_kernel``,
+    those of its adjoint launches (``_adj``, ``_dx``) under ``adjoint_`` keys."""
     roof = mods[-1]
     for n in (2, 16):
         g = torch.Generator().manual_seed(100 + n)
@@ -313,14 +329,16 @@ def phase_launch_times(torch, mods, per_kernel):
                           f"{name} {shape} batch {n}: error {err:.3e} > {TOL} * {scale:.3e}")
                     line["max_abs_err"] = err
                 emit(line)
-                agg = per_kernel.setdefault(("launch", name), {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                                               "bound_ms": 0.0, "bound_by": {}, "err": 0.0})
+                agg = per_kernel.setdefault(("launch", name), {"bound_by": {}, "err": 0.0})
                 agg["err"] = max(agg["err"], line.get("max_abs_err", 0.0))
-                if n == 16 and not shape.endswith("_dx"):
+                if n == 16:
+                    adjoint = shape.endswith(("_dx", "_adj"))
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                        agg[key] += line[key]
-                    by = agg["bound_by"]
-                    by[line["bound_by"]] = by.get(line["bound_by"], 0.0) + line["bound_ms"]
+                        k = "adjoint_" + key if adjoint else key
+                        agg[k] = agg.get(k, 0.0) + line[key]
+                    if not adjoint:
+                        by = agg["bound_by"]
+                        by[line["bound_by"]] = by.get(line["bound_by"], 0.0) + line["bound_ms"]
 
 
 def phase_recovery(torch, port):
@@ -328,8 +346,10 @@ def phase_recovery(torch, port):
     mcfg = C.ModelConfig(**TINY)
     fpcfg = C.FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000)
     acfg = C.AttributionConfig(steps=300, n_starts=4, lr=0.2, loss="mse")
+    # no device given: a library entry point runs on the card by default
     pipe = pl.build_pipeline(mcfg, fpcfg, generator=torch.Generator().manual_seed(TINY_SEED),
-                             device="cuda", want_lpips=False)
+                             want_lpips=False)
+    check(pipe.device.type == "cuda" and pipe.noise[0].is_cuda, f"default device {pipe.device}")
     imgs, _, _, bits, _ = pl.generate_fingerprinted(pipe, 3, torch.Generator().manual_seed(TINY_SEED + 1))
     t0 = time.time()
     res = attr.attribute(pipe.gen_params, None, pipe.basis, pipe.noise, imgs, mcfg=mcfg, acfg=acfg,
@@ -404,8 +424,8 @@ def phase_attribute(torch, port, gpu):
     check(len(r.bit_accs) == samples, "result rows")
     for name, n in counts.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
-    # 8 square convs in two orientations + the slice's two adjoint convs, once each
-    check(packs <= 18, f"{packs} weight packings over {steps} steps: weights are packed per call")
+    # 8 square convs in two orientations + the slice's w2 forward and its two adjoint convs, once each
+    check(packs <= 19, f"{packs} weight packings over {steps} steps: weights are packed per call")
     emit({"phase": "attribute", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512,
           "loss": "perceptual", "samples": samples, "restarts": starts, "steps": steps,
           "solve_seconds": r.solve_seconds, "steps_per_s": steps / r.solve_seconds,
@@ -471,6 +491,8 @@ def main() -> int:
             "bound_by": max(launch["bound_by"], key=launch["bound_by"].get),
             "library_ms": launch["library_ms"], "batch": 16,
             "launches_per_step": per_step[name],
+            # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`), summed likewise
+            **{k: v for k, v in launch.items() if k.startswith("adjoint_")},
         })
     print(gpu, flush=True)
     emit({"kernels": kernels})

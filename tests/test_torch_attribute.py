@@ -174,7 +174,7 @@ def tiny_pipe():
     mcfg = ModelConfig(img_size=32, channel_max=64, n_mlp=3, style_dim=64)
     fpcfg = FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000)
     return mcfg, pl.build_pipeline(mcfg, fpcfg, generator=torch.Generator().manual_seed(1),
-                                   want_lpips=False)
+                                   want_lpips=False, device="cpu")
 
 
 def test_attribution_recovers_keys(tiny_pipe):
@@ -225,7 +225,7 @@ def test_port_never_imports_jax():
         f"from {PORT}.fingerprint import pipeline as pl, attribute as attr\n"
         f"from {PORT}.cli import attribute, generate\n"
         "m = ModelConfig(img_size=8, style_dim=16, n_mlp=1, channel_max=16)\n"
-        "p = pl.build_pipeline(m, FingerprintConfig(key_len=4, shift=8, n_pca_samples=100))\n"
+        "p = pl.build_pipeline(m, FingerprintConfig(key_len=4, shift=8, n_pca_samples=100), device='cpu')\n"
         "imgs = pl.generate_fingerprinted(p, 1, torch.Generator().manual_seed(0))[0]\n"
         "r = attr.attribute(p.gen_params, p.lpips_params, p.basis, p.noise, imgs, mcfg=m,\n"
         "                   acfg=AttributionConfig(steps=2, n_starts=2, loss='mse'))\n"

@@ -78,13 +78,31 @@ def _adjoint_plain(cot, wt):
 K1 = split_symmetric_4tap(make_kernel((1, 3, 3, 1)) * 4.0)
 
 
-@pytest.mark.parametrize("c,h,pads", [(64, 17, (1, 1)), (8, 13, (2, 1)), (3, 9, (0, 3))])
-def test_blur4_kernel(cuda, c, h, pads):
-    x = _rand(2, h, h, c).to(cuda)
-    oh = h + sum(pads) - 3
-    cot = _rand(2, oh, oh, c, seed=1).to(cuda)
+# (C, H, W, pads): small scalar-path shapes (C % 4 != 0), then 16-byte channel
+# vectors at main-path widths, the adjoint's pads, odd H != W, several row strips
+BLUR4_CASES = [(64, 17, 17, (1, 1)), (8, 13, 13, (2, 1)), (3, 9, 9, (0, 3)),
+               (128, 33, 21, (1, 1)), (128, 32, 20, (2, 2)), (512, 9, 9, (1, 1)), (512, 8, 8, (2, 2)),
+               (512, 17, 31, (2, 1)), (128, 257, 257, (1, 1)), (128, 256, 256, (2, 2)), (12, 70, 5, (0, 3))]
+
+
+@pytest.mark.parametrize("c,h,w,pads", BLUR4_CASES)
+def test_blur4_kernel(cuda, c, h, w, pads):
+    x = _rand(2, h, w, c).to(cuda)
+    oh, ow = h + sum(pads) - 3, w + sum(pads) - 3
+    cot = _rand(2, oh, ow, c, seed=1).to(cuda)
     _check(lambda v: upfirdn2d_cuda.blur4(v, K1, K1, pads, pads),
            lambda v: upfirdn2d_cuda.blur4_plain(v, K1, K1, pads, pads), x, cot)
+
+
+@pytest.mark.parametrize("c", [128, 8])
+def test_blur4_kernel_on_a_tensor_off_the_16_byte_grid(cuda, c):
+    """A contiguous view whose first element is 4 bytes past a 16-byte boundary:
+    the launch must not read it in 16-byte pieces."""
+    base = _rand(2 * 13 * 10 * c + 1).to(cuda)
+    x = base[1:].view(2, 13, 10, c)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _close(upfirdn2d_cuda.blur4(x, K1, K1, (1, 1), (1, 1)), upfirdn2d_cuda.blur4_plain(x, K1, K1, (1, 1), (1, 1)))
+    _close(upfirdn2d_cuda.blur4(x, K1, K1, (2, 2), (2, 2)), upfirdn2d_cuda.blur4_plain(x, K1, K1, (2, 2), (2, 2)))
 
 
 @pytest.mark.parametrize("c,h", [(3, 8), (3, 5), (16, 4)])
@@ -145,6 +163,19 @@ def _slice_keep(x, ws):
     z1 = vgg_cuda.conv3x3_plain(x.detach(), ws[0], ws[1])
     near = (z1.abs().amin(dim=-1, keepdim=True) < 1e-5).float().permute(0, 3, 1, 2)
     return ~(torch.nn.functional.max_pool2d(near, 3, stride=1, padding=1).permute(0, 2, 3, 1) > 0)
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 16, 16), (2, 13, 22), (2, 29, 43), (2, 256, 256), (16, 256, 256)])
+def test_vgg_slice1_forward_launch(cuda, n, h, w):
+    """The forward kernel alone against plain (every element: a ReLU output needs no
+    mask) and, at the small sizes, against the tiled three-pass walk."""
+    ws = _slice_weights(cuda)
+    x = _rand(n, h, w, 3).to(cuda)
+    got = vgg_slice_cuda.slice1_forward_launch(x, *ws)
+    torch.cuda.synchronize()
+    _close(got, vgg_slice_cuda.vgg_slice1_plain(x, *ws))
+    if h <= 64:
+        _close(got, vgg_slice_cuda.vgg_slice1_forward_tiled(x, *ws))
 
 
 @pytest.mark.parametrize("h,w", [(16, 16), (13, 22), (14, 14), (29, 43), (256, 256)])

@@ -113,7 +113,7 @@ def test_torchvision_state_dict_loaders(tmp_path):
            for k, c in enumerate(jlp.LPIPS_CHANNELS)}
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp_path / "vgg16.pth")
     torch.save({k: torch.from_numpy(v) for k, v in lin.items()}, tmp_path / "vgg.pth")
-    got = lpips.build_lpips_params(vgg_path=str(tmp_path / "vgg16.pth"), lin_path=str(tmp_path / "vgg.pth"))
+    got = lpips.build_lpips_params(device="cpu", vgg_path=str(tmp_path / "vgg16.pth"), lin_path=str(tmp_path / "vgg.pth"))
     want_vgg = jlp.vgg16_params_from_torch_state_dict(sd)
     want_lin = jlp.lin_weights_from_torch_state_dict(lin)
     for g, w in zip(got["vgg"], want_vgg):

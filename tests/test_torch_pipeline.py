@@ -129,7 +129,7 @@ def test_generate_fingerprinted_given_jax_draws(jpipe):
         mcfg=ModelConfig(**MKW), fpcfg=FingerprintConfig(**FKW),
         gen_params=rosinality.params_from_jax(jpipe.gen_params),
         basis=basis_from_jax(jpipe.basis), pca=None,
-        noise=[torch.from_numpy(np.asarray(n)) for n in jpipe.noise],
+        noise=[torch.from_numpy(np.asarray(n)) for n in jpipe.noise], device=torch.device("cpu"),
     )
     timgs, tw0, twx, tbits, _ = pipeline.generate_fingerprinted(
         tpipe, 2, alpha=np.asarray(alpha), bits=np.asarray(bits))
@@ -140,8 +140,10 @@ def test_generate_fingerprinted_given_jax_draws(jpipe):
 
 def test_build_pipeline_draws_are_seeded():
     mcfg, fpcfg = ModelConfig(**MKW), FingerprintConfig(**{**FKW, "n_pca_samples": 500})
-    a = pipeline.build_pipeline(mcfg, fpcfg, generator=torch.Generator().manual_seed(4), want_lpips=False)
-    b = pipeline.build_pipeline(mcfg, fpcfg, generator=torch.Generator().manual_seed(4), want_lpips=False)
+    a = pipeline.build_pipeline(mcfg, fpcfg, generator=torch.Generator().manual_seed(4), want_lpips=False,
+                                device="cpu")
+    b = pipeline.build_pipeline(mcfg, fpcfg, generator=torch.Generator().manual_seed(4), want_lpips=False,
+                                device="cpu")
     ia = pipeline.generate_fingerprinted(a, 2, torch.Generator().manual_seed(5))[0]
     ib = pipeline.generate_fingerprinted(b, 2, torch.Generator().manual_seed(5))[0]
     torch.testing.assert_close(ia, ib, rtol=0, atol=0)

@@ -126,6 +126,6 @@ def test_wrong_architecture_is_refused(jparams):
 
 
 def test_init_generator_params_shapes():
-    p = sg2.init_generator_params(CFG, torch.Generator().manual_seed(0))
+    p = sg2.init_generator_params(CFG, torch.Generator().manual_seed(0), "cpu")
     rosinality.validate_generator(p, CFG)
     assert len(p["noises"]) == sg2.num_noise_layers(32)

@@ -12,9 +12,10 @@ so), each turn ``--steps`` steps after 3 warm-up steps, host clock around a
 ``torch.cuda.synchronize()``.  "Plain" swaps the four wrappers for their
 plain versions by assignment in this script only; the port has no such
 switch.  Then it profiles 3 steps with the kernels on (``torch.profiler``)
-and prints the device time per step by kernel name, the device-busy time and
-its complement in the (unprofiled) kernel turns' wall time, the idle share.  Every result is a JSON line; the card's
-name and power limit are on each.
+and prints the device time per step by kernel name (the 25 largest, and the
+port's five kernels whatever their rank), the device-busy time and its
+complement in the (unprofiled) kernel turns' wall time, the idle share.
+Every result is a JSON line; the card's name and power limit are on each.
 """
 
 from __future__ import annotations
@@ -133,10 +134,15 @@ def main() -> int:
             rows.append((dev / 1e3 / nprof, e.key, e.count // nprof))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    def row(r):
+        return {"ms_per_step": r[0], "share": r[0] / busy, "name": r[1][:120], "launches_per_step": r[2]}
+
+    # the port's own kernels are listed whatever their rank
+    own = ("blur4_kernel", "upblur4_kernel", "conv3x3_tc_kernel", "slice1_fwd_kernel", "slice1_bwd_kernel")
     emit({"what": "profile", "chains": samples * 4, "wall_ms_per_step": wall,
           "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall),
-          "top": [{"ms_per_step": r[0], "share": r[0] / busy, "name": r[1][:120], "launches_per_step": r[2]}
-                  for r in rows[:25]]})
+          "top": [row(r) for r in rows[:25]],
+          "port_kernels": [row(r) for r in rows if any(k in r[1] for k in own)]})
     return 0
 
 
