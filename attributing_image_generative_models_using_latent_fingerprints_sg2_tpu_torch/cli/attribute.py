@@ -1,12 +1,16 @@
-"""Attribution CLI: generate fingerprinted targets with known keys, invert
-all of them (every sample x every Latin-Hypercube restart as one batch),
-and report per-sample bit accuracy and exact-match attribution accuracy in
-``result.txt``, with the original and watermarked PNGs beside it.
+"""Attribution CLI: generate fingerprinted targets with known keys,
+optionally attack them, invert them (every sample x every Latin-Hypercube
+restart of a chunk as one batch), and report per-sample bit accuracy and
+exact-match attribution accuracy in ``result.txt``, with the original and
+watermarked PNGs beside it.  After every sample chunk the run's state is
+saved (``attribution_state.json`` + ``attribution_arrays.npz``), and
+``--resume RUN_DIR`` finishes an interrupted run from it.
 
 Run:
     python -m attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.cli.attribute \
         --device cuda --random_init --img_size 256 --key_len 64 --shift 448 \
-        --loss perceptual --sample_size 2 --n 4 --steps 20
+        --loss perceptual --sample_size 2 --n 4 --steps 20 \
+        --augmentation Jpeg --attack_aware --prune_starts 2 --polish_sweeps 1 --chunk_samples 1
 """
 
 from __future__ import annotations
@@ -16,26 +20,31 @@ import sys
 import time
 from typing import List
 
+import numpy as np
 import torch
 
+from ..checkpoints.state import AttributionRunState, load_state, save_state
+from ..config import Config
 from ..fingerprint import attribute as attr
 from ..fingerprint import pipeline as pl
 from ..losses.lpips import build_lpips_params
 from ..utils.device import resolve_device
 from ..utils.image import make_image, store_results
 from ..utils.io import make_run_dir, save_config, write_results
+from ..utils.lhs import fold_in
 from .common import build_parser, config_from_args
 
 
 @dataclasses.dataclass
 class AttributeRun:
     run_dir: str
-    bit_accs: List[float]
-    losses: List[float]
+    bit_accs: List[float]  # every sample of the run, resumed ones included
+    losses: List[float]  # samples solved by this process only
     attribution_acc: float
     solve_seconds: float
     steps: int
-    chains: int  # samples x restarts solved together
+    chains: int  # samples x restarts started together in one sample chunk
+    chain_steps: int  # chain-steps this process executed (pruning counted)
 
 
 def _sync(device: torch.device) -> None:
@@ -47,28 +56,65 @@ def run(argv=None) -> AttributeRun:
     parser = build_parser("Attribution by latent inversion (PyTorch)")
     parser.add_argument("--init", choices=["lhs", "encoder"], default="lhs",
                         help="restart initialization (only lhs is ported)")
-    parser.add_argument("--resume", type=str, default=None, help="not yet ported")
-    parser.add_argument("--chunk_samples", type=int, default=0, help="not yet ported")
-    parser.add_argument("--chunk_starts", type=int, default=0, help="not yet ported")
+    parser.add_argument("--chunk_samples", type=int, default=0,
+                        help="attribute in chunks of this many samples (0 = all at once); "
+                        "bounds peak memory at large sample_size")
+    parser.add_argument("--chunk_starts", type=int, default=0,
+                        help="split the restarts into chunks of this many (0 = all at once); "
+                        "bounds peak memory at large --n")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="resume an interrupted run from its run dir (its saved config and "
+                        "seed are used; of the flags only --device, --chunk_* and the LPIPS "
+                        "weight paths are honored)")
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
+
+    prior_arrays = {}
+    if args.resume:
+        run_dir = args.resume
+        state, prior_arrays = load_state(run_dir)
+        if state is not None and state.config:
+            # The saved config is authoritative: targets and true keys are regenerated
+            # from (config, seed), so solving the tail under other flags would mix two
+            # runs in one result.txt.  Where the run executes is not part of what it computes.
+            cfg = Config.from_dict(state.config)
+            cfg = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, device=args.device))
+            print(f"[attribute] resuming at sample {state.next_sample} from {run_dir} with its "
+                  f"saved config (seed {cfg.run.seed}); other CLI flags are ignored")
+        else:
+            cfg = config_from_args(args)
+            if state is None:
+                print(f"[attribute] no state in {run_dir}; starting fresh there")
+                state = AttributionRunState(seed=cfg.run.seed, config=cfg.to_dict())
+            else:
+                print(f"[attribute] resuming at sample {state.next_sample} from {run_dir} "
+                      "(no saved config; using CLI flags)")
+    else:
+        cfg = config_from_args(args)
+        run_dir = save_config(
+            make_run_dir(cfg.run.save_dir, cfg.attack.augmentation, cfg.fingerprint.sigma,
+                         cfg.fingerprint.shift),
+            cfg,
+        )
+        state = AttributionRunState(seed=cfg.run.seed, config=cfg.to_dict())
+    saved_dtype = (state.config or {}).get("run", {}).get("dtype", "float32")
+    if saved_dtype != "float32":  # a run directory written by the reference package
+        raise SystemExit(f"--dtype {saved_dtype}: not yet ported to the PyTorch package")
     device = resolve_device(cfg.run.device)
-    run_dir = save_config(
-        make_run_dir(cfg.run.save_dir, cfg.attack.augmentation, cfg.fingerprint.sigma,
-                     cfg.fingerprint.shift),
-        cfg,
-    )
     print(f"[attribute] run dir: {run_dir}")
 
-    g_build = torch.Generator().manual_seed(cfg.run.seed)
-    g_gen = torch.Generator().manual_seed(cfg.run.seed + 1)
-    g_opt = torch.Generator().manual_seed(cfg.run.seed + 2)
+    # one stream per purpose, each a function of the seed alone
+    g_build = torch.Generator().manual_seed(state.seed)
+    g_gen = torch.Generator().manual_seed(state.seed + 1)
+    g_atk = torch.Generator().manual_seed(state.seed + 3)
+    opt_seed = state.seed + 2
     t0 = time.time()
     perceptual = cfg.attribution.loss == "perceptual"
     lpips_params = None
     if perceptual and (args.lpips_vgg or args.lpips_lin):
         lpips_params = build_lpips_params(g_build, device, args.lpips_vgg, args.lpips_lin)
+    attacked = cfg.attack.augmentation != "None"
     pipe = pl.build_pipeline(cfg.model, cfg.fingerprint, generator=g_build, device=device,
+                             attack_cfg=cfg.attack if attacked else None,
                              ckpt_path=cfg.model.ckpt, lpips_params=lpips_params,
                              want_lpips=perceptual)
     _sync(device)
@@ -77,35 +123,79 @@ def run(argv=None) -> AttributeRun:
     s_total = cfg.run.sample_size
     t0 = time.time()
     imgs, w0, _, true_bits, _ = pl.generate_fingerprinted(pipe, s_total, g_gen)
-    targets = pl.augment(pipe, torch.clamp(imgs, -1.0, 1.0))
+    targets = pl.augment(pipe, torch.clamp(imgs, -1.0, 1.0), g_atk)
     _sync(device)
     print(f"[attribute] {s_total} targets generated in {time.time() - t0:.1f}s")
 
-    t0 = time.time()
-    res = attr.attribute(pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, targets,
-                         mcfg=cfg.model, acfg=cfg.attribution, generator=g_opt)
-    _sync(device)
-    dt = time.time() - t0
+    acfg = cfg.attribution
+    chunk = args.chunk_samples or s_total
+    bit_accs = list(state.bit_accs)
+    success = state.success
+    first_chunk = state.next_sample
+    # per-sample arrays accumulate over chunks, and over resumes when the prior
+    # checkpoint's rows line up with the progress cursor
+    rec_bits: list = []
+    losses_all: list = []
+    if (first_chunk > 0 and prior_arrays.get("recovered_bits") is not None
+            and prior_arrays["recovered_bits"].shape[0] == first_chunk):
+        rec_bits.append(prior_arrays["recovered_bits"])
+        losses_all.append(prior_arrays["losses_all"])
+    elif first_chunk > 0:
+        print("[attribute] prior per-sample arrays missing or misaligned; "
+              "attribution_arrays.npz will cover resumed samples only")
+    losses: List[float] = []
+    dt = 0.0  # the solves alone: PNGs and the state are written between them
+    for c0 in range(first_chunk, s_total, chunk):
+        c1 = min(c0 + chunk, s_total)
+        _sync(device)
+        t0 = time.time()
+        # the chunk that starts at sample c0 draws the same restarts in every run of this
+        # config and seed, whichever chunks ran before it in this process
+        res = attr.attribute_chunked(
+            pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, targets[c0:c1],
+            mcfg=cfg.model, acfg=acfg, generator=fold_in(opt_seed, c0),
+            chunk_starts=args.chunk_starts,
+            attack_cfg=cfg.attack if acfg.solver_attack != "None" else None)
+        _sync(device)
+        dt += time.time() - t0
+        ev = attr.evaluate_attribution(res, true_bits[c0:c1])
+        for i, (a, loss) in enumerate(zip(ev["bit_acc"].cpu().tolist(), res.loss.cpu().tolist())):
+            bit_accs.append(float(a))
+            losses.append(float(loss))
+            success += a >= 1.0
+            print(f"sample: {c0 + i}, bit acc: {a:.4f}, loss: {loss:.6f}")
+        store_results(run_dir, c0, make_image(pl.synthesize(pipe, w0[c0:c1])), make_image(imgs[c0:c1]))
+        write_results(run_dir, bit_accs, success / len(bit_accs))
+        state.next_sample, state.bit_accs, state.success = c1, bit_accs, int(success)
+        rec_bits.append(res.key_bits.cpu().numpy())
+        losses_all.append(res.losses_all.cpu().numpy())
+        rb = np.concatenate(rec_bits, axis=0)
+        # rows of recovered_bits / losses_all align with true_bits[first_sample:]
+        # (first_sample > 0 only when a resume could not recover the prior chunks' arrays)
+        save_state(run_dir, state, arrays={
+            "true_bits": true_bits[:c1].cpu().numpy(), "recovered_bits": rb,
+            "losses_all": np.concatenate(losses_all, axis=0),
+            "first_sample": np.asarray(c1 - rb.shape[0]),
+        })
 
-    ev = attr.evaluate_attribution(res, true_bits)
-    bit_accs = [float(a) for a in ev["bit_acc"].cpu()]
-    losses = [float(v) for v in res.loss.cpu()]
-    for i, (a, loss) in enumerate(zip(bit_accs, losses)):
-        print(f"sample: {i}, bit acc: {a:.4f}, loss: {loss:.6f}")
-    store_results(run_dir, 0, make_image(pl.synthesize(pipe, w0)), make_image(imgs))
-    success = sum(a >= 1.0 for a in bit_accs)
-    attribution_acc = success / len(bit_accs)
-    write_results(run_dir, bit_accs, attribution_acc)
-
-    chains = s_total * cfg.attribution.n_starts
-    steps = cfg.attribution.steps
-    print(f"[attribute] mean bit acc {sum(bit_accs) / len(bit_accs):.4f}, attribution acc "
+    solved = s_total - first_chunk
+    attribution_acc = success / len(bit_accs) if bit_accs else 0.0
+    chains = min(chunk, s_total) * acfg.n_starts
+    # pruning acts inside each restart chunk
+    cs = args.chunk_starts if 0 < args.chunk_starts < acfg.n_starts else acfg.n_starts
+    chain_steps = solved * sum(
+        attr.executed_chain_steps(acfg.steps, min(cs, acfg.n_starts - r0), acfg.prune_starts, acfg.prune_frac)
+        for r0 in range(0, acfg.n_starts, cs))
+    print(f"[attribute] mean bit acc {float(np.mean(bit_accs)):.4f}, attribution acc "
           f"{attribution_acc:.4f} over {s_total} samples")
-    print(f"[attribute] {dt:.2f}s solve on {device}: {steps / dt:.3f} steps/s, "
-          f"{steps * chains / dt:.2f} chain-steps/s ({chains} chains)")
+    if solved <= 0:
+        print("[attribute] nothing left to solve (resumed run already complete)")
+    else:
+        print(f"[attribute] {dt:.2f}s solve on {device}: {solved * acfg.steps / dt:.3f} sample-steps/s, "
+              f"{chain_steps / dt:.2f} chain-steps/s ({chains} chains a chunk)")
     return AttributeRun(run_dir=run_dir, bit_accs=bit_accs, losses=losses,
-                        attribution_acc=attribution_acc, solve_seconds=dt, steps=steps,
-                        chains=chains)
+                        attribution_acc=attribution_acc, solve_seconds=dt, steps=acfg.steps,
+                        chains=chains, chain_steps=chain_steps)
 
 
 def main(argv=None) -> int:

@@ -49,29 +49,41 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="torchvision-format VGG16 state dict for the LPIPS backbone")
     p.add_argument("--lpips_lin", type=str, default=None,
                    help="LPIPS linear-head weights (vgg.pth)")
+    # robustness
+    p.add_argument("--augmentation", type=str, default="None",
+                   help="attack: None | Noise | Blur | Jpeg | Crop | Combination")
+    p.add_argument("--jpeg_quality", type=int, default=50)
+    p.add_argument("--noise_sigma", type=float, default=0.1)
+    p.add_argument("--blur_sigma", type=float, default=0.5)
+    p.add_argument("--blur_filter_size", type=int, default=25, help="Blur attack filter size")
+    p.add_argument("--crop_ratio", type=float, default=0.9, help="Crop attack window ratio")
+    # solver options beyond the bare solve
+    p.add_argument("--attack_aware", action="store_true",
+                   help="push the solver's estimate through the deterministic, differentiable "
+                   "channel model of --augmentation before the loss (Noise maps to identity)")
+    p.add_argument("--coarse_to_fine", action="store_true",
+                   help="anneal a Gaussian blur on estimate and target during the solve (mse only)")
+    p.add_argument("--ctf_sigma0", type=float, default=2.0, help="initial coarse-to-fine sigma (pixels)")
+    p.add_argument("--ctf_frac", type=float, default=0.5,
+                   help="fraction of steps over which the blur anneals to 0")
+    p.add_argument("--polish_sweeps", type=int, default=0,
+                   help="after the solve, this many greedy bit-flip sweeps over the key (0 = off)")
+    p.add_argument("--polish_margin", type=float, default=0.05,
+                   help="relative loss improvement a bit flip must clear")
+    p.add_argument("--prune_starts", type=int, default=0,
+                   help="after --prune_frac of the steps keep this many best restarts per sample (0 = off)")
+    p.add_argument("--prune_frac", type=float, default=0.25,
+                   help="fraction of steps all restarts run before pruning")
     # parsed only to be refused when set (not yet ported)
-    p.add_argument("--augmentation", type=str, default="None", help="attack (only None is ported)")
-    p.add_argument("--attack_aware", action="store_true", help="not yet ported")
-    p.add_argument("--polish_sweeps", type=int, default=0, help="not yet ported")
-    p.add_argument("--prune_starts", type=int, default=0, help="not yet ported")
-    p.add_argument("--coarse_to_fine", action="store_true", help="not yet ported")
     p.add_argument("--dtype", type=str, default="float32", help="float32 (bfloat16 not yet ported)")
     return p
 
 
 def _refuse(args: argparse.Namespace) -> None:
     checks = [
-        ("--augmentation", args.augmentation != "None"),
-        ("--attack_aware", args.attack_aware),
-        ("--polish_sweeps", args.polish_sweeps != 0),
-        ("--prune_starts", args.prune_starts != 0),
-        ("--coarse_to_fine", args.coarse_to_fine),
         ("--model " + args.model, args.model != "sg2"),
         ("--dtype " + args.dtype, args.dtype != "float32"),
         ("--init encoder", getattr(args, "init", "lhs") != "lhs"),
-        ("--resume", getattr(args, "resume", None) is not None),
-        ("--chunk_samples", getattr(args, "chunk_samples", 0) != 0),
-        ("--chunk_starts", getattr(args, "chunk_starts", 0) != 0),
     ]
     for flag, is_set in checks:
         if is_set:
@@ -96,8 +108,18 @@ def config_from_args(args: argparse.Namespace) -> Config:
         fingerprint=FingerprintConfig(
             key_len=args.key_len, shift=args.shift, sigma=args.sigma, sd_moved=float(args.sd),
         ),
-        attribution=AttributionConfig(steps=args.steps, n_starts=args.n, lr=args.lr, loss=args.loss),
-        attack=AttackConfig(augmentation=args.augmentation),
+        attribution=AttributionConfig(
+            steps=args.steps, n_starts=args.n, lr=args.lr, loss=args.loss,
+            coarse_to_fine=args.coarse_to_fine, ctf_sigma0=args.ctf_sigma0, ctf_frac=args.ctf_frac,
+            polish_sweeps=args.polish_sweeps, polish_margin=args.polish_margin,
+            prune_starts=args.prune_starts, prune_frac=args.prune_frac,
+            solver_attack=args.augmentation if args.attack_aware else "None",
+        ),
+        attack=AttackConfig(
+            augmentation=args.augmentation, jpeg_quality=args.jpeg_quality,
+            noise_sigma=args.noise_sigma, blur_sigma=args.blur_sigma,
+            blur_filter_size=args.blur_filter_size, crop_ratio=args.crop_ratio,
+        ),
         run=RunConfig(sample_size=args.sample_size, batch_size=args.batch_size,
                       save_dir=args.save_dir, seed=args.seed, device=args.device),
     )

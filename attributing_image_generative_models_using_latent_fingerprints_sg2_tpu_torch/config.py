@@ -2,7 +2,9 @@
 
 Field names and defaults are the reference's; knobs of features the port
 does not carry yet are absent, and the CLI refuses their flags
-(``cli/common.py``).
+(``cli/common.py``).  ``Config.to_dict`` / ``from_dict`` are the saved form
+of a resumable run (``checkpoints/state.py``); a dictionary written by the
+reference package loads here (unknown keys are ignored) and the other way.
 """
 
 from __future__ import annotations
@@ -56,11 +58,34 @@ class AttributionConfig:
     lr_decay: float = 0.001  # lr * exp(-decay * (i+1)) at step i
     bound_weight: float = 0.1
     loss: str = "perceptual"  # "perceptual" | "mse"
+    # coarse-to-fine (mse only): compare Gaussian-blurred estimate and target,
+    # sigma annealed linearly from ctf_sigma0 to 0 over ctf_frac of the steps
+    coarse_to_fine: bool = False
+    ctf_sigma0: float = 2.0
+    ctf_frac: float = 0.5
+    # after the solve, greedy sign flips of single key logits at fixed alpha;
+    # a flip must lower the loss by the relative margin.  0 = off
+    polish_sweeps: int = 0
+    polish_margin: float = 0.05
+    # successive halving: all restarts run prune_frac of the steps, then the
+    # best prune_starts per sample run the rest.  0 = off
+    prune_starts: int = 0
+    prune_frac: float = 0.25
+    # attack-aware solving: name of the known channel the estimate is pushed
+    # through before the loss (attacks.make_solver_attack).  "None" = off
+    solver_attack: str = "None"
 
 
 @dataclasses.dataclass(frozen=True)
 class AttackConfig:
-    augmentation: str = "None"  # only "None" is ported
+    """Robustness attack settings (ref ``src/params.py:27-31``)."""
+
+    augmentation: str = "None"  # None | Noise | Blur | Jpeg | Crop | Combination
+    jpeg_quality: int = 50
+    noise_sigma: float = 0.1
+    blur_sigma: float = 0.5
+    blur_filter_size: int = 25
+    crop_ratio: float = 0.9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,3 +107,21 @@ class Config:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """Inverse of ``to_dict`` after a JSON round trip: lists become tuples
+        again, unknown keys are ignored."""
+
+        def coerce(dc_cls, sub: dict):
+            names = {f.name for f in dataclasses.fields(dc_cls)}
+            return dc_cls(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in sub.items() if k in names})
+
+        return cls(
+            model=coerce(ModelConfig, d.get("model", {})),
+            fingerprint=coerce(FingerprintConfig, d.get("fingerprint", {})),
+            attribution=coerce(AttributionConfig, d.get("attribution", {})),
+            attack=coerce(AttackConfig, d.get("attack", {})),
+            run=coerce(RunConfig, d.get("run", {})),
+        )

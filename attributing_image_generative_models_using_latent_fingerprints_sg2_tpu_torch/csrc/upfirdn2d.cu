@@ -7,7 +7,11 @@
 // upblur4 replaces ops/upfirdn2d_pallas.py::upblur4 (_upblur4_kernel): up=2,
 //         pad (2, 1), out = 2 * in.  The zero-stuffed map never exists: each
 //         output takes the 2 taps per axis that its parity selects.  On the main
-//         path it is the ToRGB skip upsample (C = 3).
+//         path it is the ToRGB skip upsample (C = 3), fused with the add it
+//         feeds: out = rgb + upblur4(skip).
+// upblur4_adj is upblur4's adjoint (ops/upfirdn2d_pallas.py::_upblur4_bwd, which
+//         the reference computes outside Pallas): down=2 correlation with the
+//         unflipped taps, pad (1, 1), in = 2 * out.
 //
 // What bounds them on the H100: device-memory bytes (2 flops a tap against 8
 // bytes an element, far below the card's flop/byte balance).
@@ -33,8 +37,20 @@
 //     3 - p1);
 //   - C % 4 != 0, or a base pointer off the 16-byte grid, takes the scalar
 //     instantiation (one channel a thread) of the same template.
-// upblur4.  One thread per output element, threads consecutive in the channel
-// axis; at C = 3 its six launches a step are bound by launch latency.
+// upblur4.  At C = 3 and 4^2..128^2 pixels the six launches a step are bound
+// by launch latency and by the launches around them, so the design removes
+// launches and repeated reads rather than tuning the arithmetic:
+//   - a thread owns one input pixel, that is a 2 x 2 output quad, for the
+//     channels three at a time: it reads the 3 x 3 input neighbourhood once
+//     (neighbours share it through L1), sums the 2-tap polyphase vertically
+//     then horizontally, adds the matching `rgb` values when that pointer is
+//     given, and writes each of the two output rows as one contiguous run
+//     (6 floats at C = 3).  The sum never goes to memory before the add;
+//   - pixel coordinates come from blockIdx / threadIdx in 32 bits; only the
+//     image's base offset is 64-bit;
+//   - the adjoint is a kernel of the same shape: a thread per input pixel
+//     gathers its 4 x 4 window of the cotangent.  The cotangent of `rgb` is the
+//     incoming one itself, so the fused backward is this one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,44 +168,136 @@ cudaError_t blur4_launch(const float* x, float* y, int n, int h, int w, int c, i
   return cudaGetLastError();
 }
 
-// upfirdn2d(x, outer(k, k), up=2, pad=(2, 1)) with f = flipped k:
-// y[t] = sum_j f[j] * u[t + j - 2], where u[2i] = x[i] and u is 0 at odd index.
-__global__ void upblur4_kernel(const float* __restrict__ x, float* __restrict__ y, int n, int h,
-                               int w, int c, Taps4 f) {
-  const int oh = 2 * h, ow = 2 * w;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t total = (int64_t)n * oh * ow * c;
-  if (idx >= total) return;
-  const int ci = (int)(idx % c);
-  int64_t t = idx / c;
-  const int ox = (int)(t % ow);
-  t /= ow;
-  const int oy = (int)(t % oh);
-  const int b = (int)(t / oh);
-  const float* xb = x + (int64_t)b * h * w * c + ci;
-  float acc = 0.f;
+// upfirdn2d(x, outer(k, k), up=2, pad=(2, 1)) with f = flipped k, as a 2-tap
+// polyphase per axis:  y[2i] = f0 * x[i - 1] + f2 * x[i],  y[2i + 1] = f1 * x[i] +
+// f3 * x[i + 1]  (x is 0 outside).  CH consecutive channels of the quad of input
+// pixel (i, j); xb / rb / yb point at the image's first of those channels.
+template <int CH>
+__device__ __forceinline__ void upblur4_quad(const float* __restrict__ xb,
+                                             const float* __restrict__ rb, float* __restrict__ yb,
+                                             int i, int j, int h, int w, int c, const Taps4& f) {
+  float ve[3][CH], vo[3][CH];  // vertical sums of the even / odd output row at columns j - 1 .. j + 1
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int my = oy + i - 2;
-    if (my < 0 || (my & 1)) continue;
-    const int iy = my >> 1;
-    if (iy >= h) continue;
-    float row = 0.f;
+  for (int dj = 0; dj < 3; ++dj) {
+    const int jj = j + dj - 1;
+    const bool col_ok = jj >= 0 && jj < w;
+    const float* xc = xb + (i * w + jj) * c;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int mx = ox + j - 2;
-      if (mx < 0 || (mx & 1)) continue;
-      const int ix = mx >> 1;
-      if (ix >= w) continue;
-      row += f.v[j] * xb[((int64_t)iy * w + ix) * c];
+    for (int e = 0; e < CH; ++e) {
+      const float up = (col_ok && i > 0) ? __ldg(xc - w * c + e) : 0.f;
+      const float mid = col_ok ? __ldg(xc + e) : 0.f;
+      const float down = (col_ok && i + 1 < h) ? __ldg(xc + w * c + e) : 0.f;
+      ve[dj][e] = f.v[0] * up + f.v[2] * mid;
+      vo[dj][e] = f.v[1] * mid + f.v[3] * down;
     }
-    acc += f.v[i] * row;
   }
-  y[idx] = acc;
+  const int row = 2 * w * c;  // floats in an output row
+  const int o0 = 2 * i * row + 2 * j * c, o1 = o0 + row;
+  float out[4][CH];
+#pragma unroll
+  for (int e = 0; e < CH; ++e) {
+    out[0][e] = f.v[0] * ve[0][e] + f.v[2] * ve[1][e];
+    out[1][e] = f.v[1] * ve[1][e] + f.v[3] * ve[2][e];
+    out[2][e] = f.v[0] * vo[0][e] + f.v[2] * vo[1][e];
+    out[3][e] = f.v[1] * vo[1][e] + f.v[3] * vo[2][e];
+  }
+  if (rb != nullptr) {
+#pragma unroll
+    for (int e = 0; e < CH; ++e) {
+      out[0][e] += __ldg(rb + o0 + e);
+      out[1][e] += __ldg(rb + o0 + c + e);
+      out[2][e] += __ldg(rb + o1 + e);
+      out[3][e] += __ldg(rb + o1 + c + e);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < CH; ++e) {
+    yb[o0 + e] = out[0][e];
+    yb[o0 + c + e] = out[1][e];
+    yb[o1 + e] = out[2][e];
+    yb[o1 + c + e] = out[3][e];
+  }
 }
 
-inline unsigned blocks_for(int64_t total, int threads) {
-  return (unsigned)((total + threads - 1) / threads);
+// y = upblur4(x) (+ rgb when given).  x [n, h, w, c]; rgb, y [n, 2h, 2w, c].
+//   threadIdx.x / blockIdx.x input column, threadIdx.y / blockIdx.y input row, blockIdx.z image
+__global__ void upblur4_kernel(const float* __restrict__ x, const float* __restrict__ rgb,
+                               float* __restrict__ y, int h, int w, int c, Taps4 f) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= h || j >= w) return;
+  const int64_t in_base = (int64_t)blockIdx.z * h * w * c;
+  const float* xb = x + in_base;
+  const float* rb = rgb != nullptr ? rgb + 4 * in_base : nullptr;
+  float* yb = y + 4 * in_base;
+  int c0 = 0;
+  for (; c0 + 3 <= c; c0 += 3)
+    upblur4_quad<3>(xb + c0, rb != nullptr ? rb + c0 : nullptr, yb + c0, i, j, h, w, c, f);
+  for (; c0 < c; ++c0)
+    upblur4_quad<1>(xb + c0, rb != nullptr ? rb + c0 : nullptr, yb + c0, i, j, h, w, c, f);
+}
+
+// dx[i, j] = sum_{r,s} k[r] * k[s] * g[2i - 1 + r, 2j - 1 + s]  (g is 0 outside), k the
+// UNFLIPPED taps: CH consecutive channels of input pixel (i, j).
+template <int CH>
+__device__ __forceinline__ void upblur4_adj_pixel(const float* __restrict__ gb,
+                                                  float* __restrict__ db, int i, int j, int h,
+                                                  int w, int c, const Taps4& k) {
+  const int oh = 2 * h, ow = 2 * w;
+  float acc[CH];
+#pragma unroll
+  for (int e = 0; e < CH; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gy = 2 * i - 1 + r;
+    if (gy < 0 || gy >= oh) continue;
+    float rowsum[CH];
+#pragma unroll
+    for (int e = 0; e < CH; ++e) rowsum[e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int gx = 2 * j - 1 + s;
+      if (gx < 0 || gx >= ow) continue;
+      const float* gp = gb + (gy * ow + gx) * c;
+#pragma unroll
+      for (int e = 0; e < CH; ++e) rowsum[e] += k.v[s] * __ldg(gp + e);
+    }
+#pragma unroll
+    for (int e = 0; e < CH; ++e) acc[e] += k.v[r] * rowsum[e];
+  }
+#pragma unroll
+  for (int e = 0; e < CH; ++e) db[(i * w + j) * c + e] = acc[e];
+}
+
+// dx = adjoint of upblur4 applied to g.  g [n, 2h, 2w, c]; dx [n, h, w, c].  Grid as upblur4_kernel.
+__global__ void upblur4_adj_kernel(const float* __restrict__ g, float* __restrict__ dx, int h,
+                                   int w, int c, Taps4 k) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= h || j >= w) return;
+  const int64_t in_base = (int64_t)blockIdx.z * h * w * c;
+  const float* gb = g + 4 * in_base;
+  float* db = dx + in_base;
+  int c0 = 0;
+  for (; c0 + 3 <= c; c0 += 3) upblur4_adj_pixel<3>(gb + c0, db + c0, i, j, h, w, c, k);
+  for (; c0 < c; ++c0) upblur4_adj_pixel<1>(gb + c0, db + c0, i, j, h, w, c, k);
+}
+
+// One thread per input pixel: up to 32 columns x enough rows for 256 threads.
+struct PixelGrid {
+  dim3 grid, block;
+};
+inline PixelGrid pixel_grid(int n, int h, int w) {
+  int bx = 1, by = 1;
+  while (bx < w && bx < 32) bx *= 2;
+  while (by < h && bx * by < 256) by *= 2;
+  return {dim3((w + bx - 1) / bx, (h + by - 1) / by, n), dim3(bx, by)};
+}
+
+// sizes a launch of the two kernels above takes: 32-bit offsets within one image
+inline bool upblur4_sizes_ok(int n, int h, int w, int c) {
+  return n > 0 && h > 0 && w > 0 && c > 0 && n <= 65535 && h <= 65535 &&
+         (int64_t)4 * h * w * c < ((int64_t)1 << 31);
 }
 
 }  // namespace
@@ -210,12 +318,22 @@ int fp_blur4_f32(const float* x, float* y, int n, int h, int w, int c, int oh, i
   return (int)blur4_launch<1>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, (cudaStream_t)stream);
 }
 
-int fp_upblur4_f32(const float* x, float* y, int n, int h, int w, int c, float f0, float f1,
-                   float f2, float f3, void* stream) {
-  const int64_t total = (int64_t)n * 4 * h * w * c;
-  if (total <= 0) return (int)cudaErrorInvalidValue;
+// y = upblur4(x) + rgb; a null `rgb` leaves the add out.
+int fp_upblur4_f32(const float* x, const float* rgb, float* y, int n, int h, int w, int c,
+                   float f0, float f1, float f2, float f3, void* stream) {
+  if (!upblur4_sizes_ok(n, h, w, c)) return (int)cudaErrorInvalidValue;
   Taps4 f = {{f0, f1, f2, f3}};
-  upblur4_kernel<<<blocks_for(total, 256), 256, 0, (cudaStream_t)stream>>>(x, y, n, h, w, c, f);
+  const PixelGrid pg = pixel_grid(n, h, w);
+  upblur4_kernel<<<pg.grid, pg.block, 0, (cudaStream_t)stream>>>(x, rgb, y, h, w, c, f);
+  return (int)cudaGetLastError();
+}
+
+int fp_upblur4_adj_f32(const float* g, float* dx, int n, int h, int w, int c, float k0, float k1,
+                       float k2, float k3, void* stream) {
+  if (!upblur4_sizes_ok(n, h, w, c)) return (int)cudaErrorInvalidValue;
+  Taps4 k = {{k0, k1, k2, k3}};
+  const PixelGrid pg = pixel_grid(n, h, w);
+  upblur4_adj_kernel<<<pg.grid, pg.block, 0, (cudaStream_t)stream>>>(g, dx, h, w, c, k);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """Gradient-based attribution: invert images back to (alpha, key).
 
-Counterpart of the reference package's ``fingerprint/attribute.py``
-(``attribute`` without pruning, polish, coarse-to-fine or the solver
-attack).  Per target and per Latin-Hypercube restart it solves
+Counterpart of the reference package's ``fingerprint/attribute.py``:
+``attribute`` with its solver attack (attack-aware solving), coarse-to-fine
+anneal, successive halving over restarts and key polish, ``polish_key_bits``
+and ``attribute_chunked``.  Per target and per Latin-Hypercube restart it solves
 
     min_{alpha, key}  loss(target, G(w(alpha, sigmoid(key)))) + 0.1 * bound(alpha)
 
@@ -21,17 +22,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..config import AttributionConfig, ModelConfig
+from ..attacks import make_solver_attack
+from ..attacks.blur import separable_blur
+from ..config import AttackConfig, AttributionConfig, ModelConfig
 from ..losses import lpips as lpips_mod
 from ..models import stylegan2 as sg2
-from ..utils.lhs import lhs_alpha_init_batch
+from ..utils.lhs import fold_in, lhs_alpha_init_batch
 from .embed import FingerprintBasis, alpha_bound_penalty, bit_accuracy, content_latent, key_offset
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+CTF_TAPS = 9  # blur support of the coarse-to-fine anneal; sigma shrinks inside it
 
 
 @dataclasses.dataclass
@@ -40,44 +44,78 @@ class AttributionResult:
     key_logits: torch.Tensor  # [S, K]
     key_bits: torch.Tensor  # [S, K] in {0, 1}
     loss: torch.Tensor  # [S] best final (pre-update) loss
-    losses_all: torch.Tensor  # [S, n] final loss of every restart
-    best_start: torch.Tensor  # [S] argmin restart index
+    losses_all: torch.Tensor  # [S, n] final loss of every restart (survivors only under pruning)
+    best_start: torch.Tensor  # [S] argmin restart index (the ORIGINAL index under pruning)
+
+
+def ctf_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur of x [..., H, W, C] in a fixed 9-tap window with
+    zero padding; sigma is floored at 1e-3, where the kernel is the identity tap."""
+    off = torch.arange(-(CTF_TAPS // 2), CTF_TAPS // 2 + 1, dtype=torch.float32)
+    k = torch.exp(-0.5 * (off / max(float(sigma), 1e-3)) ** 2)
+    return separable_blur(x.reshape((-1,) + tuple(x.shape[-3:])), k / k.sum(), "constant").reshape(x.shape)
+
+
+def ctf_sigmas(acfg: AttributionConfig, steps: int) -> List[Optional[float]]:
+    """The blur sigma of every step: a linear anneal from ``ctf_sigma0`` to 0 over
+    the first ``ctf_frac`` of the schedule; None (no blur) when the anneal is off."""
+    if not acfg.coarse_to_fine:
+        return [None] * steps
+    if acfg.loss != "mse":
+        raise ValueError(
+            "--coarse_to_fine requires --loss mse: the anneal blurs the residual inside the mse "
+            f"objective and has no effect on perceptual losses (got loss={acfg.loss!r})")
+    anneal = max(1, int(acfg.ctf_frac * steps))
+    return [acfg.ctf_sigma0 * max(0.0, 1.0 - i / anneal) for i in range(steps)]
 
 
 def make_attribution_step(
     gen_params, lpips_params, basis: FingerprintBasis, noise, mcfg: ModelConfig,
-    acfg: AttributionConfig, target_feats, targets,
+    acfg: AttributionConfig, target_feats, targets, attack_cfg: Optional[AttackConfig] = None,
 ) -> Tuple[Callable, Callable]:
     """(step, per_elem_loss) for [S, n] restarts.
 
     ``target_feats``: list of [S, 1, h, w, c] normalized features
     (perceptual) or None; ``targets``: [S, 1, H, W, 3] images (mse) or None.
-    ``step(state) -> (state, per)`` does one loss + grad + Adam update on
+    ``step(state, ctf_sigma=None) -> (state, per)`` does one loss + grad +
+    Adam update on
     ``state = {"alpha", "key", "m_alpha", "v_alpha", "m_key", "v_key", "count"}``
-    and returns the pre-update per-element loss [S, n].
+    and returns the pre-update per-element loss [S, n].  With
+    ``acfg.solver_attack != "None"`` the estimate goes through that attack's
+    channel model before the loss (``attack_cfg`` gives the strengths); with
+    ``ctf_sigma`` (mse) estimate and target are blurred by it.
     """
     nl = mcfg.n_latent
+    solver_attack = None
+    if acfg.solver_attack != "None":
+        solver_attack = make_solver_attack(attack_cfg if attack_cfg is not None else AttackConfig(),
+                                           acfg.solver_attack)
 
-    def per_elem_loss(alpha: torch.Tensor, key_logits: torch.Tensor) -> torch.Tensor:
+    def per_elem_loss(alpha: torch.Tensor, key_logits: torch.Tensor,
+                      ctf_sigma: Optional[float] = None) -> torch.Tensor:
         s_, n_ = alpha.shape[0], alpha.shape[1]
         k = torch.sigmoid(key_logits)
         wx = content_latent(basis, alpha.reshape(s_ * n_, -1)) + key_offset(basis, k.reshape(s_ * n_, -1))
         wplus = wx[:, None, :].expand(-1, nl, -1)
         imgs = sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel)
+        if solver_attack is not None:
+            imgs = solver_attack(imgs)
         if acfg.loss == "perceptual":
             feats = lpips_mod.extract_raw_features(lpips_params, imgs)
             feats = [f.reshape((s_, n_) + tuple(f.shape[1:])) for f in feats]
             per = lpips_mod.distance_from_raw_features(lpips_params, feats, target_feats)
         else:
-            est = imgs.reshape((s_, n_) + tuple(imgs.shape[1:]))
-            per = torch.mean((est - targets) ** 2, dim=(-3, -2, -1))
+            est, tgt = imgs.reshape((s_, n_) + tuple(imgs.shape[1:])), targets
+            if ctf_sigma is not None:
+                est, tgt = ctf_blur(est, ctf_sigma), ctf_blur(tgt, ctf_sigma)
+            per = torch.mean((est - tgt) ** 2, dim=(-3, -2, -1))
         return per + acfg.bound_weight * alpha_bound_penalty(basis, alpha)
 
-    def step(state: Dict[str, Any]) -> Tuple[Dict[str, Any], torch.Tensor]:
+    def step(state: Dict[str, Any], ctf_sigma: Optional[float] = None) -> Tuple[Dict[str, Any], torch.Tensor]:
         alpha = state["alpha"].detach().requires_grad_(True)
         key = state["key"].detach().requires_grad_(True)
         with torch.enable_grad():
-            per = per_elem_loss(alpha, key)
+            per = per_elem_loss(alpha, key, ctf_sigma)
             g_alpha, g_key = torch.autograd.grad(per.sum(), [alpha, key])
         return adam_update(state, {"alpha": g_alpha, "key": g_key}, acfg), per.detach()
 
@@ -108,6 +146,87 @@ def init_state(alpha0: torch.Tensor, key0: torch.Tensor) -> Dict[str, Any]:
             "m_key": z(key0), "v_key": z(key0), "count": 0}
 
 
+def prune_warm_steps(steps: int, prune_frac: float) -> int:
+    """Warm-phase length of the successive-halving schedule: at least 1 step,
+    at most steps - 1."""
+    return min(max(1, int(prune_frac * steps)), steps - 1)
+
+
+def executed_chain_steps(steps: int, n_starts: int, prune_starts: int, prune_frac: float) -> int:
+    """Chain-steps executed per sample, under ``attribute``'s own pruning guard
+    (pruning is skipped when steps < 2 or prune_starts is not in (0, n_starts))."""
+    if prune_starts and 0 < prune_starts < n_starts and steps >= 2:
+        warm = prune_warm_steps(steps, prune_frac)
+        return warm * n_starts + (steps - warm) * prune_starts
+    return steps * n_starts
+
+
+def gather_restarts(state: Dict[str, Any], start_map: torch.Tensor) -> Dict[str, Any]:
+    """Keep restarts ``start_map`` [S, k] of every per-restart tensor of the
+    solver state (parameters and all four Adam moments); the step count stays."""
+    def take(x):
+        if not torch.is_tensor(x):
+            return x
+        idx = start_map.reshape(start_map.shape + (1,) * (x.ndim - 2)).expand(-1, -1, *x.shape[2:])
+        return torch.gather(x, 1, idx)
+
+    return {name: take(x) for name, x in state.items()}
+
+
+@torch.no_grad()
+def _polish_loop(per_elem: Callable, alpha: torch.Tensor, key_logits: torch.Tensor, sweeps: int,
+                 margin: float = 0.05) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy coordinate descent over key-logit SIGNS at fixed alpha [S, D-K].
+
+    A candidate flip negates one logit (sigmoid(-l) = 1 - sigmoid(l): the
+    decoded bit mirrors, its confidence stays), so the search starts at the
+    converged loss.  A flip is kept only when it beats the incumbent loss by
+    the relative ``margin``.  Monotone; costs sweeps * key_len forwards of
+    batch S.  Returns (key_logits [S, K], loss [S])."""
+    def loss_of(logits):
+        return per_elem(alpha[:, None], logits[:, None])[:, 0]
+
+    cur = loss_of(key_logits)
+    for j in list(range(key_logits.shape[1])) * sweeps:
+        flipped = key_logits.clone()
+        flipped[:, j] = -flipped[:, j]
+        lf = loss_of(flipped)
+        better = lf < cur * (1.0 - margin)
+        key_logits = torch.where(better[:, None], flipped, key_logits)
+        cur = torch.where(better, lf, cur)
+    return key_logits, cur
+
+
+def _targets_for_loss(lpips_params, targets: torch.Tensor, acfg: AttributionConfig):
+    """(target_feats, tgt): the targets' normalized features [S, 1, h, w, c]
+    (perceptual) or the images [S, 1, H, W, 3] (mse), the other None."""
+    with torch.no_grad():
+        if acfg.loss == "perceptual":
+            return [f[:, None] for f in lpips_mod.extract_features(lpips_params, targets)], None
+        if acfg.loss == "mse":
+            return None, targets[:, None]
+    raise ValueError(f"loss must be 'perceptual' or 'mse', got {acfg.loss!r}")
+
+
+def polish_key_bits(
+    gen_params, lpips_params, basis: FingerprintBasis, noise,
+    targets: torch.Tensor,  # [S, H, W, 3]
+    alpha: torch.Tensor,  # [S, D-K] fixed content coefficients
+    key_logits: torch.Tensor,  # [S, K] logits (pass (2b-1)*scale for hard bits)
+    *,
+    mcfg: ModelConfig,
+    acfg: AttributionConfig,
+    sweeps: int = 2,
+    attack_cfg: Optional[AttackConfig] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Polish an existing attribution against its targets (see
+    :func:`_polish_loop`); decode with ``round(sigmoid(key_logits))``."""
+    target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg)
+    _, per_elem = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
+                                        target_feats, tgt, attack_cfg)
+    return _polish_loop(per_elem, alpha, key_logits, sweeps, margin=acfg.polish_margin)
+
+
 def attribute(
     gen_params, lpips_params, basis: FingerprintBasis, noise,
     targets: torch.Tensor,  # [S, H, W, 3] in [-1, 1]
@@ -115,14 +234,18 @@ def attribute(
     mcfg: ModelConfig,
     acfg: AttributionConfig,
     generator: Optional[torch.Generator] = None,
+    n_starts: Optional[int] = None,
+    attack_cfg: Optional[AttackConfig] = None,
     alpha_init: Optional[torch.Tensor] = None,
     key_init: Optional[torch.Tensor] = None,
 ) -> AttributionResult:
     """Solve attribution for a batch of targets, all samples x restarts at once.
 
     ``alpha_init`` / ``key_init`` ([S, n, D-K] / [S, n, K]) replace the
-    centered-LHS / zero restart initialization (drawn from ``generator``)."""
-    n_starts = acfg.n_starts
+    centered-LHS / zero restart initialization (drawn from ``generator``);
+    ``n_starts`` overrides ``acfg.n_starts`` (a restart chunk)."""
+    n_starts = acfg.n_starts if n_starts is None else n_starts
+    steps = acfg.steps
     device = targets.device
     s_ = targets.shape[0]
     if alpha_init is None:
@@ -132,33 +255,87 @@ def attribute(
     alpha0 = torch.as_tensor(alpha_init, dtype=torch.float32).to(device)
     key0 = torch.as_tensor(key_init, dtype=torch.float32).to(device)
 
-    with torch.no_grad():
-        if acfg.loss == "perceptual":
-            target_feats = [f[:, None] for f in lpips_mod.extract_features(lpips_params, targets)]
-            tgt = None
-        elif acfg.loss == "mse":
-            target_feats, tgt = None, targets[:, None]
-        else:
-            raise ValueError(f"loss must be 'perceptual' or 'mse', got {acfg.loss!r}")
-
-    step, _ = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
-                                    target_feats, tgt)
+    target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg)
+    step, per_elem = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
+                                           target_feats, tgt, attack_cfg)
+    sigmas = ctf_sigmas(acfg, steps)
     state = init_state(alpha0, key0)
     per = None
-    for _ in range(acfg.steps):
-        state, per = step(state)
-    final_per = per  # [S, n] pre-update loss of the last step
+    k_keep = acfg.prune_starts
+    start_map = None  # pruned index -> original restart index
+    warm = 0
+    if k_keep and 0 < k_keep < n_starts and steps >= 2:
+        # Successive halving: every restart runs the warm phase, then the k best per
+        # sample (by the warm phase's last pre-update loss; ties keep the lower index)
+        # run the rest with their Adam moments; the step count, so the rate, goes on.
+        warm = prune_warm_steps(steps, acfg.prune_frac)
+        for i in range(warm):
+            state, per = step(state, sigmas[i])
+        start_map = torch.argsort(per, dim=1, stable=True)[:, :k_keep]
+        state = gather_restarts(state, start_map)
+    for i in range(warm, steps):
+        state, per = step(state, sigmas[i])
+    final_per = per  # [S, n or k] pre-update loss of the last step
     best = torch.argmin(final_per, dim=1)
     rows = torch.arange(s_, device=device)
-    key_best = state["key"][rows, best]
+    alpha_best, key_best, loss_best = state["alpha"][rows, best], state["key"][rows, best], final_per[rows, best]
+    if acfg.polish_sweeps > 0:
+        key_best, loss_best = _polish_loop(per_elem, alpha_best, key_best, acfg.polish_sweeps,
+                                           margin=acfg.polish_margin)
+    if start_map is not None:
+        best = start_map[rows, best]
     return AttributionResult(
-        alpha=state["alpha"][rows, best],
+        alpha=alpha_best,
         key_logits=key_best,
         key_bits=torch.round(torch.sigmoid(key_best)),
-        loss=final_per[rows, best],
+        loss=loss_best,
         losses_all=final_per,
         best_start=best,
     )
+
+
+def attribute_chunked(
+    gen_params, lpips_params, basis: FingerprintBasis, noise, targets: torch.Tensor, *,
+    mcfg: ModelConfig,
+    acfg: AttributionConfig,
+    generator: Optional[torch.Generator] = None,
+    chunk_starts: int = 0,
+    **kwargs,
+) -> AttributionResult:
+    """Solve with the restart axis split into chunks of ``chunk_starts`` (0 = all
+    at once): bounds peak memory at large n at no algorithmic cost.  Restarts
+    are independent, so the per-sample minimum merges across chunks exactly.
+    The chunk that starts at restart ``c0`` draws from ``fold_in(generator, c0)``;
+    ``alpha_init`` / ``key_init`` ([S, n, ...]) follow their chunk."""
+    def solve(**kw):
+        return attribute(gen_params, lpips_params, basis, noise, targets, mcfg=mcfg, acfg=acfg, **kw)
+
+    n_total = acfg.n_starts
+    if chunk_starts <= 0 or chunk_starts >= n_total:
+        return solve(generator=generator, **kwargs)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    best: Optional[AttributionResult] = None
+    for c0 in range(0, n_total, chunk_starts):
+        n_c = min(chunk_starts, n_total - c0)
+        kw_c = dict(kwargs)
+        for name in ("alpha_init", "key_init"):
+            if kw_c.get(name) is not None:
+                kw_c[name] = kw_c[name][:, c0:c0 + n_c]
+        res = solve(generator=fold_in(generator, c0), n_starts=n_c, **kw_c)
+        if best is None:
+            best = res
+            continue
+        take_new = res.loss < best.loss  # [S]; c0 restarts have been merged so far
+        best = AttributionResult(
+            alpha=torch.where(take_new[:, None], res.alpha, best.alpha),
+            key_logits=torch.where(take_new[:, None], res.key_logits, best.key_logits),
+            key_bits=torch.where(take_new[:, None], res.key_bits, best.key_bits),
+            loss=torch.minimum(res.loss, best.loss),
+            losses_all=torch.cat([best.losses_all, res.losses_all], dim=1),
+            best_start=torch.where(take_new, res.best_start + c0, best.best_start),
+        )
+    return best
 
 
 def evaluate_attribution(result: AttributionResult, true_keys: torch.Tensor) -> Dict[str, Any]:

@@ -2,8 +2,8 @@
 
 Counterpart of the sg2 parts of the reference package's
 ``fingerprint/pipeline.py``: ``build_pipeline`` (weights -> PCA -> basis ->
-fixed synthesis noise -> LPIPS), ``generate_fingerprinted`` and
-``synthesize``.  Every random draw comes from an explicit ``torch.Generator``
+fixed synthesis noise -> LPIPS -> attack), ``generate_fingerprinted``,
+``synthesize`` and ``augment``.  Every random draw comes from an explicit ``torch.Generator``
 (on the CPU, so a seed gives the same draws on every device) and can be
 replaced by given arrays.
 """
@@ -15,7 +15,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import FingerprintConfig, ModelConfig
+from ..attacks import AttackFn, apply_attack, make_attack
+from ..config import AttackConfig, FingerprintConfig, ModelConfig
 from ..losses import lpips as lpips_mod
 from ..models import stylegan2 as sg2
 from ..utils.device import resolve_device
@@ -33,6 +34,7 @@ class Pipeline:
     noise: List[torch.Tensor]
     device: torch.device
     lpips_params: Optional[Any] = None
+    attack: Optional[AttackFn] = None
 
 
 def build_pipeline(
@@ -41,6 +43,7 @@ def build_pipeline(
     *,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    attack_cfg: Optional[AttackConfig] = None,
     gen_params: Any = None,
     ckpt_path: Optional[str] = None,
     lpips_params: Any = None,
@@ -49,7 +52,8 @@ def build_pipeline(
     noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> Pipeline:
     """Load or draw the generator, run PCA on ``device``, slice the basis,
-    draw the fixed synthesis noise, and make random LPIPS if wanted.
+    draw the fixed synthesis noise, make random LPIPS if wanted, and build
+    the eval-mode attack of ``attack_cfg``.
     ``device`` is the card unless the caller asks for ``"cpu"``; without a
     CUDA device the default raises (``utils.device.resolve_device``).
 
@@ -75,7 +79,8 @@ def build_pipeline(
     if lpips_params is None and want_lpips:
         lpips_params = lpips_mod.init_lpips_params(g, device)
     return Pipeline(mcfg=mcfg, fpcfg=fpcfg, gen_params=gen_params, basis=basis, pca=pca,
-                    noise=noise, lpips_params=lpips_params, device=device)
+                    noise=noise, lpips_params=lpips_params, device=device,
+                    attack=make_attack(attack_cfg) if attack_cfg is not None else None)
 
 
 @torch.no_grad()
@@ -104,6 +109,9 @@ def generate_fingerprinted(
     return synthesize(pipe, wx), w0, wx, bits, alpha
 
 
-def augment(pipe: Pipeline, imgs: torch.Tensor) -> torch.Tensor:
-    """The eval-mode attack; only the identity (``--augmentation None``) is ported."""
-    return imgs
+@torch.no_grad()
+def augment(pipe: Pipeline, imgs: torch.Tensor, generator: Optional[torch.Generator] = None,
+            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The pipeline's eval-mode attack on ``imgs`` (the identity if none);
+    random attacks draw from ``generator`` or take the unit-normal ``noise``."""
+    return apply_attack(pipe.attack, imgs, generator, noise)

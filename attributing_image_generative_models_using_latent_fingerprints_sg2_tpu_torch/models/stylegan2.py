@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops.fused_act import fused_leaky_relu
-from ..ops.upfirdn2d import make_kernel, upfirdn2d, upsample2x
+from ..ops.upfirdn2d import make_kernel, upfirdn2d, upsample2x_add
 from ..utils.tree import tree_to
 
 Params = Dict[str, Any]
@@ -118,7 +118,7 @@ def to_rgb(x, w_latent, p: Params, skip: Optional[torch.Tensor] = None, *,
     """1x1 modulated conv (no demod) + bias + upsampled skip."""
     y = modulated_conv2d(x, w_latent, p, demodulate=False) + p["bias"]
     if skip is not None:
-        y = y + upsample2x(skip, blur_kernel)
+        y = upsample2x_add(y, skip, blur_kernel)
     return y
 
 

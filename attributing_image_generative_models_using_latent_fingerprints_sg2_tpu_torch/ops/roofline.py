@@ -1,4 +1,4 @@
-"""Operation and byte counts of the port's five kernels, and the least time
+"""Operation and byte counts of the port's kernels, and the least time
 an H100 could take for them (the bound ``chip_smoke.py`` prints beside every
 measured time).
 
@@ -31,7 +31,7 @@ UPBLUR4_SHAPES = (4, 8, 16, 32, 64, 128)                                        
 # conv3x3_relu: (C, H, launches per forward); the backward's dx repeats each launch.
 CONV3X3_SHAPES = ((128, 128, 1), (256, 64, 2), (512, 32, 2), (512, 16, 3))
 SLICE1_H = 256
-LAUNCHES_PER_STEP = {"blur4": 12, "upblur4": 6, "conv3x3_relu": 16,
+LAUNCHES_PER_STEP = {"blur4": 12, "upblur4": 6, "upblur4_adj": 6, "conv3x3_relu": 16,
                      "vgg_slice1_fwd": 1, "vgg_slice1_bwd": 1}
 
 
@@ -50,9 +50,16 @@ def blur4(n: int, c: int, oh: int, ow: int, pads: Tuple[int, int] = (1, 1)) -> D
     return _counts(2.0 * 16 * n * oh * ow * c, 4.0 * n * c * ((oh + grow) * (ow + grow) + oh * ow), "fir")
 
 
-def upblur4(n: int, c: int, h: int, w: int) -> Dict[str, object]:
-    """up=2 4x4 FIR: 4 of the 16 taps meet a non-zero sample for every output."""
-    return _counts(2.0 * 4 * n * 4 * h * w * c, 4.0 * n * c * (h * w + 4 * h * w), "fir")
+def upblur4(n: int, c: int, h: int, w: int, fused: bool = False) -> Dict[str, object]:
+    """up=2 4x4 FIR: 4 of the 16 taps meet a non-zero sample for every output.
+    ``fused``: ``rgb + upblur4(x)``, one more add an output and ``rgb`` read once."""
+    outs = 4.0 * n * h * w * c
+    return _counts((2.0 * 4 + fused) * outs, 4.0 * (outs / 4 + outs * (1 + fused)), "fir")
+
+
+def upblur4_adj(n: int, c: int, h: int, w: int) -> Dict[str, object]:
+    """upblur4's adjoint, (2h x 2w) -> (h x w): 16 taps for every element of the smaller side."""
+    return _counts(2.0 * 16 * n * h * w * c, 4.0 * n * c * (4 * h * w + h * w), "fir")
 
 
 def conv3x3(n: int, h: int, w: int, c: int) -> Dict[str, object]:
@@ -79,8 +86,10 @@ def main_path(name: str, n: int) -> Sequence[Tuple[str, Dict[str, object]]]:
         return [(f"C{c}_H{h}", blur4(n, c, h, h)) for c, h in BLUR4_SHAPES]
     if name == "blur4_adj":  # the backward's launches of blur4: H -> H + 1
         return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2))) for c, h in BLUR4_SHAPES]
-    if name == "upblur4":
-        return [(f"C3_H{h}", upblur4(n, 3, h, h)) for h in UPBLUR4_SHAPES]
+    if name == "upblur4":  # fused with the ToRGB add, as the main path launches it
+        return [(f"C3_H{h}", upblur4(n, 3, h, h, fused=True)) for h in UPBLUR4_SHAPES]
+    if name == "upblur4_adj":
+        return [(f"C3_H{h}", upblur4_adj(n, 3, h, h)) for h in UPBLUR4_SHAPES]
     if name == "conv3x3_relu":
         return [(f"C{c}_H{h}", conv3x3(n, h, h, c)) for c, h, _ in CONV3X3_SHAPES]
     if name == "vgg_slice1_fwd":

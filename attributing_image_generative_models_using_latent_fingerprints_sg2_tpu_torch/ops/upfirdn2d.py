@@ -8,7 +8,8 @@ FIR kernel (correlate with its flip), keep every ``down``-th sample.
 Two cases of the synthesis network dispatch to the FIR kernels of
 ``upfirdn2d_cuda`` (CUDA kernels on a CUDA tensor, their plain versions on a
 CPU one): a 4x4 separable symmetric kernel with up=down=1 and non-negative
-pads (``blur4``), and the same kernel with up=2, pad (2, 1) (``upblur4``).
+pads (``blur4``), and the same kernel with up=2, pad (2, 1) (``upblur4``;
+``upsample2x_add`` is its fusion with the ToRGB skip's add).
 Everything else takes the general path below.
 """
 
@@ -117,6 +118,14 @@ def upsample2x(x: torch.Tensor, kernel=(1, 3, 3, 1)) -> torch.Tensor:
     k = make_kernel(kernel) * 4.0
     p = k.shape[0] - 2
     return upfirdn2d(x, k, up=2, down=1, pad=((p + 1) // 2 + 1, p // 2))
+
+
+def upsample2x_add(rgb: torch.Tensor, skip: torch.Tensor, kernel=(1, 3, 3, 1)) -> torch.Tensor:
+    """``rgb + upsample2x(skip, kernel)``; one fused pass for a 4-tap kernel."""
+    k1d = split_symmetric_4tap(make_kernel(kernel) * 4.0) if len(kernel) == 4 else None
+    if k1d is None:
+        return rgb + upsample2x(skip, kernel)
+    return upfirdn2d_cuda.upblur4_add(rgb, skip, k1d)
 
 
 def blur(x: torch.Tensor, kernel, pad: Tuple[int, int], upsample_factor: int = 1) -> torch.Tensor:

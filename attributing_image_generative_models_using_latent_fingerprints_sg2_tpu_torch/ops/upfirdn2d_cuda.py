@@ -1,10 +1,14 @@
-"""The two 4-tap FIR kernels of the synthesis network (``csrc/upfirdn2d.cu``).
+"""The 4-tap FIR kernels of the synthesis network (``csrc/upfirdn2d.cu``).
 
 Counterpart of the reference's ``ops/upfirdn2d_pallas.py``:
 
 - ``blur4``:   up=down=1 separable 4x4 FIR with pads (p0, p1) per axis, the
                post-transpose blur of every upsample styled conv;
-- ``upblur4``: up=2, pad (2, 1) separable 4x4 FIR, the ToRGB skip upsample.
+- ``upblur4``: up=2, pad (2, 1) separable 4x4 FIR, the ToRGB skip upsample;
+               ``upblur4_add(rgb, x, k)`` is the same kernel with the add it
+               feeds fused in (``rgb + upblur4(x)``), and its backward is one
+               launch of the adjoint kernel ``upblur4_adj`` (the reference
+               computes that adjoint outside Pallas).
 
 Each public function runs its plain PyTorch version on a CPU tensor and the
 CUDA kernel on a CUDA tensor (float32, else it raises).  Taps are the
@@ -26,9 +30,14 @@ BLUR4 = register(Kernel(
     replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/upfirdn2d_pallas.py:127",
 ))
 UPBLUR4 = register(Kernel(
-    "upblur4", "fp_upblur4_f32", [PTR, PTR] + [INT] * 4 + [FLOAT] * 4,
+    "upblur4", "fp_upblur4_f32", [PTR, PTR, PTR] + [INT] * 4 + [FLOAT] * 4,
     source="csrc/upfirdn2d.cu",
     replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/upfirdn2d_pallas.py:216",
+))
+UPBLUR4_ADJ = register(Kernel(
+    "upblur4_adj", "fp_upblur4_adj_f32", [PTR, PTR] + [INT] * 4 + [FLOAT] * 4,
+    source="csrc/upfirdn2d.cu",
+    replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/upfirdn2d_pallas.py:235",
 ))
 
 
@@ -96,9 +105,9 @@ def upblur4_plain(x, k) -> torch.Tensor:
     return depthwise_correlate(u, _outer(kf, kf, x), (2, 1, 2, 1))
 
 
-def _upblur4_adjoint(g: torch.Tensor, k) -> torch.Tensor:
+def upblur4_adjoint_plain(g: torch.Tensor, k) -> torch.Tensor:
     """Adjoint of upblur4: down=2 correlation with outer(k, k), pad (1, 1)
-    (the reference's ``_upblur4_bwd``, computed outside Pallas there too)."""
+    (the reference's ``_upblur4_bwd``)."""
     return depthwise_correlate(g, _outer(k, k, g), (1, 1, 1, 1), stride=2)
 
 
@@ -135,20 +144,42 @@ class _Blur4(torch.autograd.Function):
         return dx, None, None, None, None
 
 
+def upblur4_launch(x, k, rgb=None) -> torch.Tensor:
+    """upblur4(x) (+ ``rgb`` [N, 2H, 2W, C] when given) with UNFLIPPED taps ``k``."""
+    check_cuda_f32("upblur4", x)
+    n, h, w, c = x.shape
+    y = torch.empty((n, 2 * h, 2 * w, c), device=x.device, dtype=x.dtype)
+    if rgb is not None:
+        check_cuda_f32("upblur4", rgb)
+        if rgb.shape != y.shape:
+            raise ValueError(f"upblur4: rgb {tuple(rgb.shape)} does not match the output {tuple(y.shape)}")
+    UPBLUR4(x.data_ptr(), None if rgb is None else rgb.data_ptr(), y.data_ptr(), n, h, w, c, *k[::-1])
+    return y
+
+
+def upblur4_adjoint_launch(g, k) -> torch.Tensor:
+    """The adjoint of upblur4 applied to g [N, 2H, 2W, C], UNFLIPPED taps ``k``."""
+    check_cuda_f32("upblur4_adj", g)
+    n, oh, ow, c = g.shape
+    if oh % 2 or ow % 2:
+        raise ValueError(f"upblur4_adj: odd cotangent size {tuple(g.shape)}")
+    dx = torch.empty((n, oh // 2, ow // 2, c), device=g.device, dtype=g.dtype)
+    UPBLUR4_ADJ(g.data_ptr(), dx.data_ptr(), n, oh // 2, ow // 2, c, *k)
+    return dx
+
+
 class _Upblur4(torch.autograd.Function):
+    """upblur4(x) + rgb (rgb may be None): one launch forward, one backward."""
+
     @staticmethod
-    def forward(ctx, x, k):
+    def forward(ctx, x, rgb, k):
         ctx.k = k
-        x = x.contiguous()
-        check_cuda_f32("upblur4", x)
-        n, h, w, c = x.shape
-        y = torch.empty((n, 2 * h, 2 * w, c), device=x.device, dtype=x.dtype)
-        UPBLUR4(x.data_ptr(), y.data_ptr(), n, h, w, c, *k[::-1])
-        return y
+        return upblur4_launch(x.contiguous(), k, None if rgb is None else rgb.contiguous())
 
     @staticmethod
     def backward(ctx, g):
-        return _upblur4_adjoint(g, ctx.k), None
+        dx = upblur4_adjoint_launch(g.contiguous(), ctx.k) if ctx.needs_input_grad[0] else None
+        return dx, (g if ctx.needs_input_grad[1] else None), None
 
 
 def blur4(x: torch.Tensor, ky, kx, pad_y, pad_x) -> torch.Tensor:
@@ -165,4 +196,12 @@ def upblur4(x: torch.Tensor, k) -> torch.Tensor:
     k = tuple(float(v) for v in k)
     if x.device.type == "cpu":
         return upblur4_plain(x, k)
-    return _Upblur4.apply(x, k)
+    return _Upblur4.apply(x, None, k)
+
+
+def upblur4_add(rgb: torch.Tensor, x: torch.Tensor, k) -> torch.Tensor:
+    """``rgb + upblur4(x, k)`` in one pass: the ToRGB skip connection."""
+    k = tuple(float(v) for v in k)
+    if x.device.type == "cpu":
+        return rgb + upblur4_plain(x, k)
+    return _Upblur4.apply(x, rgb, k)

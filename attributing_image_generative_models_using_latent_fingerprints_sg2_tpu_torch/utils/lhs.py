@@ -4,7 +4,8 @@ permutation of strata per dimension, all drawn in one argsort."""
 
 from __future__ import annotations
 
-from typing import Optional
+import hashlib
+from typing import Optional, Union
 
 import torch
 
@@ -21,3 +22,13 @@ def lhs_alpha_init_batch(batch: int, n: int, sigma: torch.Tensor,
     """[batch, n, d] restart initializations scaled to [-sigma, sigma]."""
     s = latin_hypercube_batch(batch, n, sigma.shape[0], generator).to(sigma.device)
     return (2.0 * s - 1.0) * sigma
+
+
+def fold_in(parent: Union[torch.Generator, int], data: int) -> torch.Generator:
+    """A new CPU generator seeded by a fixed hash of ``parent``'s seed (a
+    generator's ``initial_seed()``, however much has been drawn from it) and
+    ``data``: chunk ``data`` of a run draws the same numbers whether or not the
+    chunks before it ran in this process."""
+    seed = parent.initial_seed() if isinstance(parent, torch.Generator) else int(parent)
+    digest = hashlib.sha256(f"{seed}:{int(data)}".encode()).digest()
+    return torch.Generator().manual_seed(int.from_bytes(digest[:8], "little") >> 1)

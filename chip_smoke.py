@@ -36,6 +36,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                count over this run must be > 0.  A second run of 10 steps
                gives the launches per solve step as the difference of the
                two runs' counts over the difference in steps.
+6. attacks  -- every attack and every solver attack at (2, 256, 256, 3) on the
+               card against the same function on the CPU copy of the input
+               (1e-5; Jpeg with differentiable rounding 2e-4; hard-rounded
+               Jpeg: at least 99.9% of pixels within 2e-4, since a coefficient
+               within rounding of a half-integer moves its block by a whole
+               quantisation step); the solver attacks' gradients are finite.
+7. robust   -- the tiny configuration of phase 3 under the Blur attack, solved
+               attack-aware from one set of starts: alone, with the restarts
+               in chunks of two (which must give the unchunked run's key bits
+               and best start), and with successive halving (half the schedule
+               as warm phase: this sample's winning restart blooms late) and a
+               polish sweep on.  Each run is held to phase 3's criterion.
+8. attacked -- ``cli.attribute`` at full width on Jpeg-attacked targets,
+               attack-aware, pruned to 2 restarts, one polish sweep, in sample
+               chunks of one (20 steps); every kernel's launch count over this
+               run must be > 0.  Then the same run twice more with cuDNN held
+               to its deterministic algorithms (with the default ones two runs
+               of one seed differ, and at 20 steps on random weights a rounding
+               difference decides bits): once whole, and once as a copy of that
+               run directory set back to the end of its first chunk and
+               finished with ``--resume``: the two ``result.txt`` must be equal.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -166,8 +187,12 @@ def phase_kernels(torch, mods):
                       lambda v: up_cuda.blur4_plain(v, k1, k1, (1, 1), (1, 1)),
                       rnd(2, h2 + 1, h2 + 1, c), rnd(2, h2, h2, c)))
     for h in (4, 8, 16, 32, 64, 128):
-        cases.append(("upblur4", f"C3_H{h}", lambda v: up_cuda.upblur4(v, k1),
-                      lambda v: up_cuda.upblur4_plain(v, k1), rnd(2, h, h, 3), rnd(2, 2 * h, 2 * h, 3)))
+        # the ToRGB skip as the main path runs it: rgb + upblur4(skip) in one launch,
+        # dx through the adjoint kernel
+        rgb = rnd(2, 2 * h, 2 * h, 3)
+        cases.append(("upblur4", f"C3_H{h}", lambda v, rgb=rgb: up_cuda.upblur4_add(rgb, v, k1),
+                      lambda v, rgb=rgb: rgb + up_cuda.upblur4_plain(v, k1), rnd(2, h, h, 3),
+                      rnd(2, 2 * h, 2 * h, 3)))
     for c, h in ((128, 128), (256, 64), (512, 32), (512, 16)):
         w, b = rnd(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5), rnd(c, scale=0.1)
         cases.append(("conv3x3_relu", f"C{c}_H{h}",
@@ -242,14 +267,28 @@ def launch_cases(torch, mods, n, rnd):
         cases.append(("blur4", f"C{c}_H{h}_adj", kf, pf,
                       lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=2, groups=c),
                       roof.blur4(n, c, h + 1, h + 1, (2, 2)), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+    wl3 = torch.outer(kt, kt).expand(3, 1, 4, 4).contiguous()
     for h in roof.UPBLUR4_SHAPES:
-        x = rnd(n, h, h, 3)
-        wl = torch.outer(kt, kt).expand(3, 1, 4, 4).contiguous()
-        cases.append(("upblur4", f"C3_H{h}", lambda x=x: up_cuda.upblur4(x, k1),
-                      lambda x=x: up_cuda.upblur4_plain(x, k1),
-                      lambda x=x, wl=wl: F.conv_transpose2d(x.permute(0, 3, 1, 2), wl, stride=2,
-                                                            padding=1, groups=3),
-                      roof.upblur4(n, 3, h, h), None))
+        x, rgb = rnd(n, h, h, 3), rnd(n, 2 * h, 2 * h, 3)
+        kf = lambda x=x, rgb=rgb: up_cuda.upblur4_launch(x, k1, rgb)
+        pf = lambda x=x, rgb=rgb: rgb + up_cuda.upblur4_plain(x, k1)
+        cases.append(("upblur4", f"C3_H{h}", kf, pf,
+                      lambda x=x, rgb=rgb: F.conv_transpose2d(x.permute(0, 3, 1, 2), wl3, stride=2, padding=1,
+                                                              groups=3) + rgb.permute(0, 3, 1, 2),
+                      roof.upblur4(n, 3, h, h, fused=True), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+    for h in roof.UPBLUR4_SHAPES:
+        g = rnd(n, 2 * h, 2 * h, 3)
+
+        def plain_adjoint(g=g, h=h):
+            """upblur4_plain's adjoint applied to g, by autograd (the FIR is linear)."""
+            with torch.enable_grad():
+                x0 = torch.zeros((n, h, h, 3), device="cuda").requires_grad_(True)
+                return torch.autograd.grad(up_cuda.upblur4_plain(x0, k1), x0, g)[0]
+
+        kf = lambda g=g: up_cuda.upblur4_adjoint_launch(g, k1)
+        cases.append(("upblur4_adj", f"C3_H{h}", kf, lambda g=g: up_cuda.upblur4_adjoint_plain(g, k1),
+                      lambda g=g: F.conv2d(g.permute(0, 3, 1, 2), wl3, stride=2, padding=1, groups=3),
+                      roof.upblur4_adj(n, 3, h, h), lambda kf=kf, pa=plain_adjoint: (kf(), pa(), None)))
     for c, h, _ in roof.CONV3X3_SHAPES:
         w, b = rnd(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5), rnd(c, scale=0.1)
         x = rnd(n, h, h, c)
@@ -391,6 +430,11 @@ def phase_generate(torch, port):
     emit({"phase": "generate", "pngs": sum(len(v) for v in pngs.values()), "seconds": time.time() - t0})
 
 
+def check_all_launched(counts, path: str) -> None:
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched by {path}")
+
+
 def phase_attribute(torch, port, gpu):
     cuda_mod = port["_cuda"]
     save = os.path.join(OUT, "attribute")
@@ -422,8 +466,7 @@ def phase_attribute(torch, port, gpu):
         check(os.path.exists(os.path.join(r.run_dir, f)), f"missing {f}")
     check(all(v == v and abs(v) < float("inf") for v in r.losses), f"non-finite losses {r.losses}")
     check(len(r.bit_accs) == samples, "result rows")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+    check_all_launched(counts, "the plain full-width solve")
     # 8 square convs in two orientations + the slice's w2 forward and its two adjoint convs, once each
     check(packs <= 19, f"{packs} weight packings over {steps} steps: weights are packed per call")
     emit({"phase": "attribute", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512,
@@ -434,6 +477,132 @@ def phase_attribute(torch, port, gpu):
           "launches": counts, "launches_half_run": half, "launches_per_step": per_step,
           "weight_packings": packs, "gpu": gpu})
     return counts, per_step
+
+
+def phase_attacks(torch, port):
+    import math
+
+    atk, C = port["attacks"], port["config"]
+    g = torch.Generator().manual_seed(7)
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, 256), torch.linspace(-1, 1, 256), indexing="ij")
+    base = torch.stack([torch.sin(3 * xx + p) * torch.cos(2 * yy - p) for p in (0.0, 1.0, 2.0)], -1)
+    x_cpu = torch.clamp(0.8 * base[None] + 0.25 * torch.randn((2, 256, 256, 3), generator=g), -1.0, 1.0)
+    x = x_cpu.cuda()
+    unit = torch.randn(x_cpu.shape, generator=g)
+    for name in ("Noise", "Blur", "Jpeg", "Crop", "Combination"):
+        cfg = C.AttackConfig(augmentation=name)
+        attack, solver = atk.make_attack(cfg), atk.make_solver_attack(cfg, name)
+        line = {"phase": "attacks", "attack": name}
+        got, want = atk.apply_attack(attack, x, noise=unit).cpu(), atk.apply_attack(attack, x_cpu, noise=unit)
+        check(got.shape == x_cpu.shape and bool(torch.isfinite(got).all()), f"{name}: shape or non-finite")
+        diff = (got - want).abs()
+        if name in ("Jpeg", "Combination"):  # hard rounding: count, do not take a max
+            line["share_within_2e-4"] = float((diff <= 2e-4).float().mean())
+            check(line["share_within_2e-4"] >= 0.999, f"{name}: {line['share_within_2e-4']:.5f} of pixels agree")
+        else:
+            line["max_abs_err"] = float(diff.max())
+            check(line["max_abs_err"] <= 1e-5, f"{name}: card vs CPU {line['max_abs_err']:.3e}")
+        xr, xc = x.clone().requires_grad_(True), x_cpu.clone().requires_grad_(True)
+        ys, yc = solver(xr), solver(xc)
+        tol = 2e-4 if name in ("Jpeg", "Combination") else 1e-5
+        line["solver_max_abs_err"] = float((ys.detach().cpu() - yc.detach()).abs().max())
+        check(line["solver_max_abs_err"] <= tol, f"{name} solver attack: card vs CPU {line['solver_max_abs_err']:.3e}")
+        (grad,) = torch.autograd.grad(ys.sum(), xr)
+        check(bool(torch.isfinite(grad).all()), f"{name} solver attack: non-finite gradient")
+        line["solver_grad_abs_max"] = float(grad.abs().max())
+        check(math.isfinite(line["solver_grad_abs_max"]) and line["solver_grad_abs_max"] > 0, f"{name}: zero gradient")
+        emit(line)
+
+
+def phase_robust_recovery(torch, port):
+    """Blur-attacked targets of the tiny configuration, solved attack-aware."""
+    C, pl, attr, lhs = port["config"], port["pipeline"], port["attribute"], port["lhs"]
+    mcfg = C.ModelConfig(**TINY)
+    fpcfg = C.FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000)
+    acfg_kw = dict(steps=300, n_starts=4, lr=0.2, loss="mse", solver_attack="Blur")
+    atk_cfg = C.AttackConfig(augmentation="Blur")
+    pipe = pl.build_pipeline(mcfg, fpcfg, generator=torch.Generator().manual_seed(TINY_SEED),
+                             want_lpips=False, attack_cfg=atk_cfg)
+    imgs, _, _, bits, _ = pl.generate_fingerprinted(pipe, 3, torch.Generator().manual_seed(TINY_SEED + 1))
+    # unclamped, as phase 3 takes them: the random tiny generator leaves [-1, 1], and the
+    # solver's estimate is not clamped, so only then is the planted key an exact solution
+    targets = pl.augment(pipe, imgs)
+    check(float((targets - imgs).abs().max()) > 1e-3, "the Blur attack left the targets unchanged")
+    alpha0 = lhs.lhs_alpha_init_batch(3, 4, pipe.basis.sigma_rest, torch.Generator().manual_seed(TINY_SEED + 2))
+    results = {}
+    for label, extra, chunk in (("attack_aware", {}, 0), ("chunk_starts_2", {}, 2),
+                                ("pruned_polished", dict(prune_starts=2, prune_frac=0.5, polish_sweeps=1), 0)):
+        t0 = time.time()
+        res = attr.attribute_chunked(pipe.gen_params, None, pipe.basis, pipe.noise, targets, mcfg=mcfg,
+                                     acfg=C.AttributionConfig(**acfg_kw, **extra), chunk_starts=chunk,
+                                     attack_cfg=atk_cfg, alpha_init=alpha0)
+        torch.cuda.synchronize()
+        accs = [float(a) for a in attr.evaluate_attribution(res, bits)["bit_acc"].cpu()]
+        results[label] = res
+        emit({"phase": "robust", "run": label, "bit_acc": accs, "exact": sum(a >= 1.0 for a in accs),
+              "loss": [float(v) for v in res.loss.cpu()], "best_start": res.best_start.cpu().tolist(),
+              "restarts_at_the_end": res.losses_all.shape[1], "seconds": time.time() - t0})
+        check(sum(accs) / 3 > 0.85, f"{label}: mean bit accuracy {sum(accs) / 3:.3f} <= 0.85")
+        check(sum(a >= 1.0 for a in accs) >= 2, f"{label}: fewer than 2 of 3 keys exact: {accs}")
+    whole, parts = results["attack_aware"], results["chunk_starts_2"]
+    check(torch.equal(whole.key_bits, parts.key_bits), "chunked restarts changed the key bits")
+    check(torch.equal(whole.best_start, parts.best_start),
+          f"chunked restarts changed the best start: {whole.best_start.tolist()} vs {parts.best_start.tolist()}")
+    check(results["pruned_polished"].losses_all.shape == (3, 2), "pruning kept another number of restarts")
+
+
+def phase_attacked_attribute(torch, port, gpu):
+    """The attacked, attack-aware, pruned, polished, chunked full-width solve, then
+    the same run cut after its first sample chunk and finished with --resume."""
+    cuda_mod, state_mod = port["_cuda"], port["state"]
+    steps, samples, starts, keep = 20, 2, 4, 2
+    flags = FULL + ["--loss", "perceptual", "--sample_size", str(samples), "--n", str(starts), "--steps", str(steps),
+                    "--augmentation", "Jpeg", "--attack_aware", "--prune_starts", str(keep), "--polish_sweeps", "1",
+                    "--chunk_samples", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_mod.reset_launches()
+    r = port["cli_attribute"].run(flags + ["--save_dir", os.path.join(OUT, "attacked")])
+    counts = cuda_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_all_launched(counts, "the attacked full-width solve")
+    want_steps = samples * port["attribute"].executed_chain_steps(steps, starts, keep, 0.25)
+    check(r.chain_steps == want_steps, f"{r.chain_steps} chain-steps counted, {want_steps} expected")
+    check(len(r.bit_accs) == samples and all(v == v and abs(v) < float("inf") for v in r.losses),
+          f"rows {r.bit_accs}, losses {r.losses}")
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = port["cli_attribute"].run(flags + ["--save_dir", os.path.join(OUT, "attacked_whole")])
+        st, arrays = state_mod.load_state(whole.run_dir)
+        check(st.next_sample == samples and arrays["recovered_bits"].shape == (samples, 64)
+              and arrays["losses_all"].shape == (samples, keep), "saved state of the finished run")
+        # what a run killed after its first chunk leaves: cursor at 1, one row in every array
+        cut = os.path.join(OUT, "attacked_cut")
+        shutil.copytree(whole.run_dir, cut)
+        os.remove(os.path.join(cut, "result.txt"))
+        st.next_sample, st.bit_accs, st.success = 1, st.bit_accs[:1], int(st.bit_accs[0] >= 1.0)
+        state_mod.save_state(cut, st, {k: (v[:1] if v.ndim else v) for k, v in arrays.items()})
+        cuda_mod.reset_launches()
+        r2 = port["cli_attribute"].run(["--device", "cuda", "--resume", cut, "--chunk_samples", "1"])
+        resumed_counts = cuda_mod.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check_all_launched(resumed_counts, "the resumed solve")
+    results = [open(os.path.join(d, "result.txt")).read() for d in (whole.run_dir, cut)]
+    check(results[0] == results[1], f"resumed result.txt differs:\n{results[0]}\nvs\n{results[1]}")
+    check(r2.bit_accs == whole.bit_accs and r2.losses == whole.losses[1:], "resumed rows")
+    emit({"phase": "attacked", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512,
+          "loss": "perceptual", "augmentation": "Jpeg", "attack_aware": True, "samples": samples,
+          "restarts": starts, "prune_starts": keep, "polish_sweeps": 1, "chunk_samples": 1, "steps": steps,
+          "solve_seconds": r.solve_seconds, "executed_chain_steps": r.chain_steps,
+          "chain_steps_per_s": r.chain_steps / r.solve_seconds, "max_memory_allocated_bytes": peak,
+          "losses": r.losses, "bit_acc": r.bit_accs, "launches": counts,
+          "deterministic_cudnn": {"whole_solve_seconds": whole.solve_seconds, "losses": whole.losses,
+                                  "resumed_solve_seconds": r2.solve_seconds,
+                                  "resumed_executed_chain_steps": r2.chain_steps,
+                                  "result_txt_equal": True, "resumed_launches": resumed_counts}, "gpu": gpu})
+    return counts
 
 
 def main() -> int:
@@ -450,7 +619,8 @@ def main() -> int:
         port = {name: importlib.import_module(f"{PORT}.{mod}") for name, mod in (
             ("_cuda", "ops._cuda"), ("up_cuda", "ops.upfirdn2d_cuda"), ("vgg_cuda", "ops.vgg_cuda"),
             ("slice_cuda", "ops.vgg_slice_cuda"), ("upf", "ops.upfirdn2d"), ("roof", "ops.roofline"),
-            ("tf32", "ops.tf32"), ("config", "config"),
+            ("tf32", "ops.tf32"), ("config", "config"), ("attacks", "attacks"), ("lhs", "utils.lhs"),
+            ("state", "checkpoints.state"),
             ("pipeline", "fingerprint.pipeline"), ("attribute", "fingerprint.attribute"),
             ("cli_generate", "cli.generate"), ("cli_attribute", "cli.attribute"))}
     except ImportError as e:
@@ -474,19 +644,23 @@ def main() -> int:
     phase_recovery(torch, port)
     phase_generate(torch, port)
     counts, per_step = phase_attribute(torch, port, gpu)
+    phase_attacks(torch, port)
+    phase_robust_recovery(torch, port)
+    attacked_counts = phase_attacked_attribute(torch, port, gpu)
 
+    # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
+    through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
+               "upblur4": ("upblur4", "err_fwd"), "upblur4_adj": ("upblur4", "err_dx")}
     kernels = []
     for name, k in port["_cuda"].KERNELS.items():
-        base = "vgg_slice1" if name.startswith("vgg_slice1") else name
+        base, which = through.get(name, (name, None))
         agg, launch = per_kernel[base], per_kernel[("launch", name)]
-        bwd = name == "vgg_slice1_bwd"
         # times: one launch of each distinct main-path shape at batch 16 (the 16-chain
         # solve), launch function only, summed over the shapes
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PORT}/{k.source}", "replaces": k.replaces,
-            "launches": counts[name],
-            "max_abs_err": max(launch["err"], agg["err_dx"] if bwd else agg["err_fwd"] if base != name
-                               else max(agg["err_fwd"], agg["err_dx"])),
+            "launches": counts[name], "launches_attacked_path": attacked_counts[name],
+            "max_abs_err": max(launch["err"], agg[which] if which else max(agg["err_fwd"], agg["err_dx"])),
             "ms": launch["ms"], "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
             "bound_by": max(launch["bound_by"], key=launch["bound_by"].get),
             "library_ms": launch["library_ms"], "batch": 16,

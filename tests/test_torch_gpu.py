@@ -112,6 +112,47 @@ def test_upblur4_kernel(cuda, c, h):
     _check(lambda v: upfirdn2d_cuda.upblur4(v, K1), lambda v: upfirdn2d_cuda.upblur4_plain(v, K1), x, cot)
 
 
+K_SKEW = split_symmetric_4tap(make_kernel((1, 2, 3, 4)) * 4.0)  # non-palindromic: the flip matters
+# (C, H, W): the main path's C = 3, an odd C (groups of 3 + a remainder), H != W, ragged blocks
+UPBLUR4_CASES = [(3, 4, 4), (3, 128, 128), (3, 5, 9), (7, 6, 3), (16, 4, 4), (1, 33, 70)]
+
+
+@pytest.mark.parametrize("taps", [K1, K_SKEW])
+@pytest.mark.parametrize("c,h,w", UPBLUR4_CASES)
+def test_upblur4_add_kernel(cuda, c, h, w, taps):
+    """The fused rgb + upblur4(skip): forward, d/dskip (the adjoint kernel) and d/drgb."""
+    x = _rand(2, h, w, c).to(cuda)
+    rgb = _rand(2, 2 * h, 2 * w, c, seed=2).to(cuda).requires_grad_(True)
+    cot = _rand(2, 2 * h, 2 * w, c, seed=1).to(cuda)
+    _check(lambda v: upfirdn2d_cuda.upblur4_add(rgb, v, taps),
+           lambda v: rgb + upfirdn2d_cuda.upblur4_plain(v, taps), x, cot)
+    (d_rgb,) = torch.autograd.grad(upfirdn2d_cuda.upblur4_add(rgb, x, taps), rgb, cot)
+    assert torch.equal(d_rgb, cot)
+
+
+@pytest.mark.parametrize("taps", [K1, K_SKEW])
+@pytest.mark.parametrize("c,h,w", UPBLUR4_CASES)
+def test_upblur4_adjoint_launch(cuda, c, h, w, taps):
+    g = _rand(2, 2 * h, 2 * w, c, seed=3).to(cuda)
+    _close(upfirdn2d_cuda.upblur4_adjoint_launch(g, taps), upfirdn2d_cuda.upblur4_adjoint_plain(g, taps))
+
+
+def test_to_rgb_skip_path_reaches_no_library_conv(cuda):
+    """Forward and backward of the ToRGB skip run the two kernels and no
+    conv / conv_transpose of PyTorch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _rand(2, 16, 16, 3).to(cuda).requires_grad_(True)
+    rgb = _rand(2, 32, 32, 3, seed=1).to(cuda).requires_grad_(True)
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        upfirdn2d_cuda.upblur4_add(rgb, x, K1).sum().backward()
+    names = {e.key for e in prof.key_averages()}
+    assert not [n for n in names if "conv" in n.lower()], sorted(names)
+    counts = _cuda.launch_counts()
+    assert counts["upblur4"] == 1 and counts["upblur4_adj"] == 1
+
+
 CONV_SHAPES = [(64, 16, 16), (128, 12, 20), (64, 5, 9),               # small and ragged
                (128, 128, 128), (256, 64, 64), (512, 32, 32), (512, 16, 16),  # the 256px main path
                (256, 13, 33), (512, 9, 17)]

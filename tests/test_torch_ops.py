@@ -115,8 +115,64 @@ def test_upblur4_adjoint_is_the_kernels_transpose():
     x = torch.from_numpy(_rand((1, 6, 6, 3), 6))
     g = torch.from_numpy(_rand((1, 12, 12, 3), 7))
     lhs = (upfirdn2d_cuda.upblur4_plain(x, k1) * g).sum()
-    rhs = (x * upfirdn2d_cuda._upblur4_adjoint(g, k1)).sum()
+    rhs = (x * upfirdn2d_cuda.upblur4_adjoint_plain(g, k1)).sum()
     np.testing.assert_allclose(lhs.item(), rhs.item(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("c", [3, 7])
+@pytest.mark.parametrize("taps", [(1, 3, 3, 1), (1, 2, 3, 4)])
+def test_upblur4_add_and_adjoint_plain_match_pallas(c, taps):
+    """The fused ``rgb + upblur4(skip)`` and the adjoint's plain version against the
+    JAX ``upblur4`` (interpret mode) and its ``_upblur4_bwd``; with (1, 2, 3, 4) the
+    taps are not palindromic, so a missing flip would show."""
+    k1 = split_symmetric_4tap(make_kernel(taps) * 4.0)
+    x, rgb, cot = _rand((2, 6, 8, c), 20), _rand((2, 12, 16, c), 21), _rand((2, 12, 16, c), 22)
+    with pltpu.force_tpu_interpret_mode():
+        jy, jdx = _jax_grad(lambda v: jnp.asarray(rgb) + jpk.upblur4(v, k1), x, cot)
+    jadj = np.asarray(jpk._upblur4_bwd(k1, None, jnp.asarray(cot))[0])
+    xt = torch.from_numpy(x).requires_grad_(True)
+    rt = torch.from_numpy(rgb).requires_grad_(True)
+    y = upfirdn2d_cuda.upblur4_add(rt, xt, k1)
+    dx, drgb = torch.autograd.grad(y, [xt, rt], torch.from_numpy(cot))
+    np.testing.assert_allclose(y.detach().numpy(), jy, atol=ATOL)
+    np.testing.assert_allclose(dx.numpy(), jdx, atol=ATOL)
+    np.testing.assert_array_equal(drgb.numpy(), cot)
+    adj = upfirdn2d_cuda.upblur4_adjoint_plain(torch.from_numpy(cot), k1).numpy()
+    np.testing.assert_allclose(adj, jadj, atol=ATOL)
+    np.testing.assert_allclose(adj, dx.numpy(), atol=ATOL)
+
+
+def test_upsample2x_add_equals_the_two_step_path():
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.ops.upfirdn2d import (
+        upsample2x_add,
+    )
+
+    skip, rgb = torch.from_numpy(_rand((2, 4, 4, 3), 23)), torch.from_numpy(_rand((2, 8, 8, 3), 24))
+    for kernel in ((1, 3, 3, 1), (1, 2, 1)):  # the 4-tap kernel's fused pass, and the general path
+        want = rgb + upsample2x(skip, kernel)
+        np.testing.assert_allclose(upsample2x_add(rgb, skip, kernel).numpy(), want.numpy(), atol=1e-6)
+
+
+def test_to_rgb_through_the_fused_skip_equals_the_two_step_path():
+    """ToRGB = modulated 1x1 conv + bias, then ``+ upsample2x(skip)``: through the
+    fused function, values and the gradients to x, the latent and the skip are
+    those of the two steps written out."""
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.models import (
+        stylegan2 as sg2,
+    )
+
+    p = sg2._init_to_rgb(torch.Generator().manual_seed(0), 8, 16)
+    p["bias"] = torch.tensor([0.1, -0.2, 0.3])
+    x, w, skip = (torch.from_numpy(_rand(sh, 30 + i)).requires_grad_(True)
+                  for i, sh in enumerate(((2, 8, 8, 8), (2, 16), (2, 4, 4, 3))))
+    cot = torch.from_numpy(_rand((2, 8, 8, 3), 33))
+    got = sg2.to_rgb(x, w, p, skip)
+    want = sg2.modulated_conv2d(x, w, p, demodulate=False) + p["bias"] + upsample2x(skip)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=1e-6)
+    for a, b in zip(torch.autograd.grad(got, [x, w, skip], cot), torch.autograd.grad(want, [x, w, skip], cot)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    no_skip = sg2.to_rgb(x, w, p, None)
+    assert no_skip.shape == (2, 8, 8, 3)
 
 
 def test_fused_leaky_relu_matches_jax():

@@ -146,6 +146,27 @@ def test_blur4_adjoint_counts(c, h):
     assert label == f"C{c}_H{h}_adj" and counts == adj
 
 
+@pytest.mark.parametrize("h", roofline.UPBLUR4_SHAPES)
+def test_upblur4_fused_and_adjoint_counts(h):
+    """The fused forward reads skip and rgb once and writes the sum once, with one
+    add on top of the 4 live taps an output; the adjoint reads the (2h)^2 cotangent
+    once, writes h^2, and takes 16 taps for each of those."""
+    n, c = 16, 3
+    outs = n * c * 4 * h * h
+    plain, fused, adj = (roofline.upblur4(n, c, h, h), roofline.upblur4(n, c, h, h, fused=True),
+                         roofline.upblur4_adj(n, c, h, h))
+    assert plain["bytes"] == 4.0 * (outs // 4 + outs) and plain["flops"] == 8.0 * outs
+    assert fused["bytes"] == plain["bytes"] + 4.0 * outs and fused["flops"] == 9.0 * outs
+    assert adj["bytes"] == plain["bytes"] and adj["flops"] == 2.0 * 16 * (outs // 4)
+    for counts in (plain, fused, adj):
+        assert counts["bound_by"] == "bytes"
+        assert counts["bound_ms"] == pytest.approx(1e3 * counts["bytes"] / roofline.PEAK_BYTES)
+    i = roofline.UPBLUR4_SHAPES.index(h)
+    assert roofline.main_path("upblur4", n)[i] == (f"C3_H{h}", fused)
+    assert roofline.main_path("upblur4_adj", n)[i] == (f"C3_H{h}", adj)
+    assert roofline.LAUNCHES_PER_STEP["upblur4"] == roofline.LAUNCHES_PER_STEP["upblur4_adj"] == 6
+
+
 # ---------------------------------------------------------------------------
 # (d) library entry points run on the card unless asked for the CPU
 # ---------------------------------------------------------------------------

@@ -9,11 +9,11 @@ LPIPS-VGG16, random weights from a seed, ``--chains`` = 4 restarts x
 (chains / 4) samples.  It runs the solver's own ``step`` in the turns
 kernel, plain, plain, kernel (one card, one call: two versions compare only
 so), each turn ``--steps`` steps after 3 warm-up steps, host clock around a
-``torch.cuda.synchronize()``.  "Plain" swaps the four wrappers for their
+``torch.cuda.synchronize()``.  "Plain" swaps the wrappers the step calls for their
 plain versions by assignment in this script only; the port has no such
 switch.  Then it profiles 3 steps with the kernels on (``torch.profiler``)
 and prints the device time per step by kernel name (the 25 largest, and the
-port's five kernels whatever their rank), the device-busy time and its
+port's kernels whatever their rank), the device-busy time and its
 complement in the (unprofiled) kernel turns' wall time, the idle share.
 Every result is a JSON line; the card's name and power limit are on each.
 """
@@ -81,9 +81,10 @@ def main() -> int:
                              dtype=torch.float32).cuda()
     key0 = torch.zeros((samples, 4, 64), device="cuda")
 
-    kernel_fns = {(up_cuda, "blur4"): up_cuda.blur4, (up_cuda, "upblur4"): up_cuda.upblur4,
+    kernel_fns = {(up_cuda, "blur4"): up_cuda.blur4, (up_cuda, "upblur4_add"): up_cuda.upblur4_add,
                   (lp, "conv3x3_relu"): lp.conv3x3_relu, (lp, "vgg_slice1"): lp.vgg_slice1}
-    plain_fns = {(up_cuda, "blur4"): up_cuda.blur4_plain, (up_cuda, "upblur4"): up_cuda.upblur4_plain,
+    plain_fns = {(up_cuda, "blur4"): up_cuda.blur4_plain,
+                 (up_cuda, "upblur4_add"): lambda rgb, x, k: rgb + up_cuda.upblur4_plain(x, k),
                  (lp, "conv3x3_relu"): vgg_cuda.conv3x3_relu_plain,
                  (lp, "vgg_slice1"): slice_cuda.vgg_slice1_plain}
 
@@ -138,7 +139,8 @@ def main() -> int:
         return {"ms_per_step": r[0], "share": r[0] / busy, "name": r[1][:120], "launches_per_step": r[2]}
 
     # the port's own kernels are listed whatever their rank
-    own = ("blur4_kernel", "upblur4_kernel", "conv3x3_tc_kernel", "slice1_fwd_kernel", "slice1_bwd_kernel")
+    own = ("blur4_kernel", "upblur4_kernel", "upblur4_adj_kernel", "conv3x3_tc_kernel", "slice1_fwd_kernel",
+           "slice1_bwd_kernel")
     emit({"what": "profile", "chains": samples * 4, "wall_ms_per_step": wall,
           "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall),
           "top": [row(r) for r in rows[:25]],
