@@ -6,6 +6,11 @@ cursor, per-sample results, the seed and the run's config in
 ``attribution_arrays.npz``.  File names and keys are those of the reference
 package's ``checkpoints/state.py``, so a run directory written by either
 package loads in the other.
+
+The restart-initialization scheme (``--init`` and the encoder's budget) is
+not part of the reference's saved state, so a resumed run there can mix two
+schemes in one ``result.txt``.  The port writes it to a side file,
+``init_scheme.json``, which the reference ignores.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+INIT_SCHEME_FILE = "init_scheme.json"
 
 
 @dataclasses.dataclass
@@ -47,6 +54,25 @@ def save_state(run_dir: str, state: AttributionRunState,
         tmp = apath + ".tmp.npz"
         np.savez(tmp, **{k: np.asarray(v) for k, v in arrays.items()})
         os.replace(tmp, apath)
+
+
+def save_init_scheme(run_dir: str, scheme: Dict[str, object]) -> None:
+    """Persist the run's restart-initialization scheme beside its state."""
+    os.makedirs(run_dir, exist_ok=True)
+    path = os.path.join(run_dir, INIT_SCHEME_FILE)
+    with open(path + ".tmp", "w") as f:
+        json.dump(scheme, f)
+    os.replace(path + ".tmp", path)
+
+
+def load_init_scheme(run_dir: str) -> Optional[Dict[str, object]]:
+    """The saved scheme, or None for a directory without one (a run of the
+    reference package, or one that predates the file)."""
+    path = os.path.join(run_dir, INIT_SCHEME_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 def load_state(run_dir: str) -> Tuple[Optional[AttributionRunState], Dict[str, np.ndarray]]:

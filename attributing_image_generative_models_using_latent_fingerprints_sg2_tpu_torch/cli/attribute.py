@@ -2,15 +2,19 @@
 optionally attack them, invert them (every sample x every Latin-Hypercube
 restart of a chunk as one batch), and report per-sample bit accuracy and
 exact-match attribution accuracy in ``result.txt``, with the original and
-watermarked PNGs beside it.  After every sample chunk the run's state is
-saved (``attribution_state.json`` + ``attribution_arrays.npz``), and
-``--resume RUN_DIR`` finishes an interrupted run from it.
+watermarked PNGs beside it.  With ``--init encoder`` an encoder trained on
+the attack channel first predicts each target's (alpha, key), and every
+restart starts around that prediction.  After every sample chunk the run's
+state is saved (``attribution_state.json`` + ``attribution_arrays.npz``, and
+the init scheme in ``init_scheme.json``), and ``--resume RUN_DIR`` finishes
+an interrupted run from it.
 
 Run:
     python -m attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.cli.attribute \
         --device cuda --random_init --img_size 256 --key_len 64 --shift 448 \
         --loss perceptual --sample_size 2 --n 4 --steps 20 \
-        --augmentation Jpeg --attack_aware --prune_starts 2 --polish_sweeps 1 --chunk_samples 1
+        --augmentation Jpeg --attack_aware --init encoder --encoder_steps 100 \
+        --prune_starts 2 --polish_sweeps 1 --chunk_samples 1
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ from typing import List
 import numpy as np
 import torch
 
-from ..checkpoints.state import AttributionRunState, load_state, save_state
+from ..checkpoints.state import AttributionRunState, load_init_scheme, load_state, save_init_scheme, save_state
 from ..config import Config
 from ..fingerprint import attribute as attr
+from ..fingerprint import encoder as enc_mod
 from ..fingerprint import pipeline as pl
 from ..losses.lpips import build_lpips_params
 from ..utils.device import resolve_device
@@ -55,7 +60,15 @@ def _sync(device: torch.device) -> None:
 def run(argv=None) -> AttributeRun:
     parser = build_parser("Attribution by latent inversion (PyTorch)")
     parser.add_argument("--init", choices=["lhs", "encoder"], default="lhs",
-                        help="restart initialization (only lhs is ported)")
+                        help="restart initialization: blind centered LHS, or around the prediction of "
+                        "an encoder trained at startup on frozen-generator pairs (fingerprint/encoder.py)")
+    parser.add_argument("--encoder_steps", type=int, default=1500,
+                        help="--init encoder: training steps")
+    parser.add_argument("--encoder_batch", type=int, default=0,
+                        help="--init encoder: rendered images per training step; 0 = "
+                        "encoder.auto_batch (64 through 128px, 16 at 256px)")
+    parser.add_argument("--encoder_jitter", type=float, default=0.25,
+                        help="--init encoder: LHS cloud radius around the prediction, in units of sigma_rest")
     parser.add_argument("--chunk_samples", type=int, default=0,
                         help="attribute in chunks of this many samples (0 = all at once); "
                         "bounds peak memory at large sample_size")
@@ -63,15 +76,21 @@ def run(argv=None) -> AttributeRun:
                         help="split the restarts into chunks of this many (0 = all at once); "
                         "bounds peak memory at large --n")
     parser.add_argument("--resume", type=str, default=None,
-                        help="resume an interrupted run from its run dir (its saved config and "
-                        "seed are used; of the flags only --device, --chunk_* and the LPIPS "
-                        "weight paths are honored)")
+                        help="resume an interrupted run from its run dir (its saved config, seed "
+                        "and init scheme are used; of the flags only --device, --chunk_* and the "
+                        "LPIPS weight paths are honored)")
     args = parser.parse_args(argv)
 
     prior_arrays = {}
+    scheme = {"init": args.init, "encoder_steps": args.encoder_steps, "encoder_batch": args.encoder_batch,
+              "encoder_jitter": args.encoder_jitter}
     if args.resume:
         run_dir = args.resume
         state, prior_arrays = load_state(run_dir)
+        saved_scheme = load_init_scheme(run_dir)
+        if saved_scheme is None:
+            print(f"[attribute] no saved init scheme in {run_dir}; using --init {args.init}")
+        scheme = saved_scheme or scheme
         if state is not None and state.config:
             # The saved config is authoritative: targets and true keys are regenerated
             # from (config, seed), so solving the tail under other flags would mix two
@@ -96,6 +115,7 @@ def run(argv=None) -> AttributeRun:
             cfg,
         )
         state = AttributionRunState(seed=cfg.run.seed, config=cfg.to_dict())
+    save_init_scheme(run_dir, scheme)
     saved_dtype = (state.config or {}).get("run", {}).get("dtype", "float32")
     if saved_dtype != "float32":  # a run directory written by the reference package
         raise SystemExit(f"--dtype {saved_dtype}: not yet ported to the PyTorch package")
@@ -128,6 +148,19 @@ def run(argv=None) -> AttributeRun:
     print(f"[attribute] {s_total} targets generated in {time.time() - t0:.1f}s")
 
     acfg = cfg.attribution
+    alpha_init_all = key_init_all = None
+    if scheme["init"] == "encoder":
+        t0 = time.time()
+        enc_params, enc_curve, ecfg = enc_mod.train_for_init(
+            pipe.gen_params, pipe.basis, pipe.noise, mcfg=cfg.model, seed=state.seed,
+            steps=scheme["encoder_steps"], jitter=scheme["encoder_jitter"], batch=scheme["encoder_batch"],
+            attack_cfg=cfg.attack if attacked else None)
+        alpha_init_all, key_init_all = enc_mod.encoder_solve_init(
+            enc_params, pipe.basis, targets, acfg.n_starts, fold_in(state.seed, 8), jitter=ecfg.jitter)
+        enc_acc = float(enc_mod.encoder_bit_accuracy(enc_params, targets, true_bits).mean())
+        final = f"{float(enc_curve[-1]):.4f}" if len(enc_curve) else "n/a"
+        print(f"[attribute] encoder trained in {time.time() - t0:.1f}s ({ecfg.steps} steps, batch {ecfg.batch}, "
+              f"final loss {final}); zero-step decode bit acc {enc_acc:.4f}")
     chunk = args.chunk_samples or s_total
     bit_accs = list(state.bit_accs)
     success = state.success
@@ -155,7 +188,9 @@ def run(argv=None) -> AttributeRun:
             pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, targets[c0:c1],
             mcfg=cfg.model, acfg=acfg, generator=fold_in(opt_seed, c0),
             chunk_starts=args.chunk_starts,
-            attack_cfg=cfg.attack if acfg.solver_attack != "None" else None)
+            attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
+            alpha_init=None if alpha_init_all is None else alpha_init_all[c0:c1],
+            key_init=None if key_init_all is None else key_init_all[c0:c1])
         _sync(device)
         dt += time.time() - t0
         ev = attr.evaluate_attribution(res, true_bits[c0:c1])

@@ -83,7 +83,6 @@ def _refuse(args: argparse.Namespace) -> None:
     checks = [
         ("--model " + args.model, args.model != "sg2"),
         ("--dtype " + args.dtype, args.dtype != "float32"),
-        ("--init encoder", getattr(args, "init", "lhs") != "lhs"),
     ]
     for flag, is_set in checks:
         if is_set:

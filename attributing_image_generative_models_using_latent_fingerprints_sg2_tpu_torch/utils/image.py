@@ -11,9 +11,26 @@ import torch
 
 
 def make_image(imgs: torch.Tensor) -> np.ndarray:
-    """[-1, 1] float NHWC -> uint8 NHWC numpy: clamp, +1, *255/2, round."""
-    x = torch.clamp(imgs.detach(), -1.0, 1.0)
-    return torch.round((x + 1.0) * (255.0 / 2.0)).to(torch.uint8).cpu().numpy()
+    """[-1, 1] float NHWC tensor -> uint8 NHWC numpy (``make_image_np``)."""
+    return make_image_np(imgs.detach().float().cpu().numpy())
+
+
+def make_image_np(img: np.ndarray) -> np.ndarray:
+    """[-1, 1] float32 numpy image(s) -> uint8: clamp, +1, *255/2, round half
+    to even.  In numpy, so the server's HTTP threads never start intra-op
+    thread teams of their own."""
+    return np.round((np.clip(img, -1.0, 1.0) + 1.0) * np.float32(255.0 / 2.0)).astype(np.uint8)
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """uint8 HWC -> PNG bytes, encoded in memory (the serving path)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
 
 
 def _save_png(arr: np.ndarray, path: str) -> None:

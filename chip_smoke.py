@@ -57,6 +57,35 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                difference decides bits): once whole, and once as a copy of that
                run directory set back to the end of its first chunk and
                finished with ``--resume``: the two ``result.txt`` must be equal.
+9. encoder  -- the encoder (``fingerprint/encoder.py``) trained 200 steps at
+               full width, 256px, batch 16, on the Jpeg channel: finite loss
+               whose last 20 steps average below the first 10, ``blur4`` and
+               ``upblur4`` launched, steps/s, images/s, peak memory at batch 16
+               and (3 steps) at batch 64, and the device time of the render vs
+               the encoder's step (``torch.profiler``).  Then the tiny
+               configuration at the reference's budget (400 steps, batch 16):
+               zero-step decode above 0.55 over 256 samples, and the encoder-init
+               solve (150 steps, 4 restarts) no worse than the LHS solve from
+               the same generator by more than one bit (1/8) on 3 samples.
+10. attribute_encoder -- ``cli.attribute --init encoder`` at full width (2 x 4
+               chains, 20 steps, 100 encoder steps, Jpeg, attack-aware): it
+               prints its encoder line, writes ``result.txt``, launches every
+               kernel.
+11. serve   -- ``cli.serve``'s engine at full width (buckets 1 and 4,
+               perceptual, 20 steps, 4 restarts, encoder init of 100 steps, a
+               16-user registry) behind the HTTP server on port 0: 8 concurrent
+               /v1/generate from a client process (half of them as users:
+               their keys come back verbatim) coalesce into fewer batches, then
+               two bursts of 16 concurrent PNG requests (images/s at bucket 4,
+               the server cold and warm), /v1/attribute,
+               /v1/identify (all six kernels launched) and /v1/stats, with
+               client-side latency per route; the layers under it alone (the
+               engine solo and as a burst of 16 without HTTP, the server's PNG
+               and float-list encodings of one image); then the engine's batch
+               function alone per (kind, bucket), where one seed gives the same
+               image at bucket 1 and 4 (1e-3).  Then the tiny
+               configuration served (300 steps): identify names the planted
+               users.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -605,6 +634,325 @@ def phase_attacked_attribute(torch, port, gpu):
     return counts
 
 
+def device_ms_per_call(torch, fn, calls: int = 3) -> float:
+    """Device time of ``fn`` (the sum of its CUDA kernels' self times under
+    ``torch.profiler``), per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            total += dev
+    return total / 1e3 / calls
+
+
+def phase_encoder(torch, port, gpu):
+    """(a) The encoder: 200 training steps at full width and 256px on the Jpeg
+    channel (batch 16 = auto_batch(256)), its device time split between the
+    render and the encoder's step, a few steps at batch 64 for the memory;
+    then 400 steps on the tiny configuration, whose decode and encoder-init
+    solve are held to the reference's criteria."""
+    C, pl, enc, attr, cuda_mod = port["config"], port["pipeline"], port["encoder"], port["attribute"], port["_cuda"]
+    mcfg = C.ModelConfig(img_size=256)
+    atk = C.AttackConfig(augmentation="Jpeg")
+    pipe = pl.build_pipeline(mcfg, C.FingerprintConfig(key_len=64, shift=448),
+                             generator=torch.Generator().manual_seed(0), want_lpips=False, attack_cfg=atk)
+    batch = enc.auto_batch(256)
+    check(batch == 16, f"auto_batch(256) = {batch}")
+    ecfg = enc.EncoderConfig(batch=batch)
+    steps = 200
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_mod.reset_launches()
+    t0 = time.time()
+    params, curve = enc.train_encoder(pipe.gen_params, pipe.basis, pipe.noise, mcfg=mcfg, ecfg=ecfg,
+                                      attack="Jpeg", attack_cfg=atk, generator=torch.Generator().manual_seed(1),
+                                      steps_override=steps)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = cuda_mod.launch_counts()
+    peak16 = torch.cuda.max_memory_allocated()
+    check(curve.shape == (steps,) and bool(torch.isfinite(curve).all()), "non-finite encoder loss")
+    first, last = float(curve[:10].mean()), float(curve[-20:].mean())
+    check(last < first, f"encoder loss did not fall: first 10 {first:.4f}, last 20 {last:.4f}")
+    for name in ("blur4", "upblur4"):
+        check(counts[name] > 0, f"kernel {name} was not launched by encoder training")
+
+    # where a step's device time goes: the render (generator forward + Jpeg) vs the
+    # encoder's forward + backward + clipped Adam, each profiled alone on fixed inputs
+    g = torch.Generator().manual_seed(2)
+    attack_fn = port["attacks"].make_attack(atk)
+    imgs, alpha, bits = enc.render(pipe.gen_params, pipe.basis, pipe.noise, mcfg, batch, g, attack_fn)
+    opt = enc.init_opt_state(params)
+    render_ms = device_ms_per_call(
+        torch, lambda: enc.render(pipe.gen_params, pipe.basis, pipe.noise, mcfg, batch, g, attack_fn))
+    step_ms = device_ms_per_call(
+        torch, lambda: enc.train_step(params, opt, imgs, alpha, bits, pipe.basis.sigma_rest, ecfg))
+
+    torch.cuda.reset_peak_memory_stats()
+    enc.train_encoder(pipe.gen_params, pipe.basis, pipe.noise, mcfg=mcfg, ecfg=enc.EncoderConfig(batch=64),
+                      attack="Jpeg", attack_cfg=atk, generator=torch.Generator().manual_seed(3), steps_override=3)
+    torch.cuda.synchronize()
+    peak64 = torch.cuda.max_memory_allocated()
+    emit({"phase": "encoder", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512,
+          "augmentation": "Jpeg", "batch": batch, "steps": steps, "seconds": dt, "steps_per_s": steps / dt,
+          "images_per_s": steps * batch / dt, "loss_first10": first, "loss_last20": last,
+          "max_memory_allocated_bytes_batch16": peak16, "max_memory_allocated_bytes_batch64": peak64,
+          "device_ms_render": render_ms, "device_ms_encoder_step": step_ms, "launches": counts, "gpu": gpu})
+
+    # the tiny configuration at the reference's budget (400 steps at batch 16), the
+    # generator from seed 0 as there.  Its zero-step decode is a weak signal (about
+    # 0.59 on the CPU), so it is read over 256 samples, not 8
+    t0 = time.time()
+    tmcfg = C.ModelConfig(**TINY)
+    tpipe = pl.build_pipeline(tmcfg, C.FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000),
+                              generator=torch.Generator().manual_seed(0), want_lpips=False)
+    tparams, tcurve = enc.train_encoder(
+        tpipe.gen_params, tpipe.basis, tpipe.noise, mcfg=tmcfg,
+        ecfg=enc.EncoderConfig(width=32, max_width=64, head_dim=64, steps=400, batch=16),
+        generator=torch.Generator().manual_seed(4))
+    imgs_d, _, _, bits_d, _ = pl.generate_fingerprinted(tpipe, 256, torch.Generator().manual_seed(12))
+    decode = float(enc.encoder_bit_accuracy(tparams, imgs_d, bits_d).mean())
+    check(decode > 0.55, f"zero-step decode {decode:.3f} <= 0.55")
+    imgs3, _, _, bits3, _ = pl.generate_fingerprinted(tpipe, 3, torch.Generator().manual_seed(21))
+    acfg = C.AttributionConfig(steps=150, n_starts=4, lr=0.2, loss="mse")
+    a0, k0 = enc.encoder_solve_init(tparams, tpipe.basis, imgs3, 4, torch.Generator().manual_seed(22))
+    res_enc = attr.attribute(tpipe.gen_params, None, tpipe.basis, tpipe.noise, imgs3, mcfg=tmcfg, acfg=acfg,
+                             alpha_init=a0, key_init=k0)
+    res_lhs = attr.attribute(tpipe.gen_params, None, tpipe.basis, tpipe.noise, imgs3, mcfg=tmcfg, acfg=acfg,
+                             generator=torch.Generator().manual_seed(23))
+    acc_enc = float(attr.evaluate_attribution(res_enc, bits3)["mean_bit_acc"])
+    acc_lhs = float(attr.evaluate_attribution(res_lhs, bits3)["mean_bit_acc"])
+    emit({"phase": "encoder_tiny", "steps": 400, "batch": 16, "loss_first10": float(tcurve[:10].mean()),
+          "loss_last20": float(tcurve[-20:].mean()), "zero_step_decode_256": decode, "solve_steps": 150,
+          "bit_acc_encoder_init": acc_enc, "bit_acc_lhs": acc_lhs,
+          "loss_encoder_init": [float(v) for v in res_enc.loss.cpu()],
+          "loss_lhs": [float(v) for v in res_lhs.loss.cpu()], "seconds": time.time() - t0})
+    check(acc_enc >= acc_lhs - 1.0 / 8, f"encoder-init solve {acc_enc:.3f} worse than LHS {acc_lhs:.3f} by > 1 bit")
+    return counts
+
+
+def phase_attribute_encoder(torch, port, gpu):
+    """(b) ``cli.attribute --init encoder`` at full width on the Jpeg channel, attack-aware."""
+    import contextlib
+    import io
+
+    cuda_mod = port["_cuda"]
+    flags = FULL + ["--loss", "perceptual", "--sample_size", "2", "--n", "4", "--steps", "20",
+                    "--augmentation", "Jpeg", "--attack_aware", "--init", "encoder", "--encoder_steps", "100",
+                    "--save_dir", os.path.join(OUT, "attribute_encoder")]
+    cuda_mod.reset_launches()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        r = port["cli_attribute"].run(flags)
+    seconds = time.time() - t0
+    counts = cuda_mod.launch_counts()
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    lines = [ln for ln in text.splitlines() if "encoder trained in" in ln and "zero-step decode bit acc" in ln]
+    check(len(lines) == 1, "cli.attribute --init encoder printed no encoder line")
+    check(os.path.exists(os.path.join(r.run_dir, "result.txt")), "missing result.txt")
+    check(len(r.bit_accs) == 2 and all(v == v and abs(v) < float("inf") for v in r.losses),
+          f"rows {r.bit_accs}, losses {r.losses}")
+    check_all_launched(counts, "cli.attribute --init encoder")
+    emit({"phase": "attribute_encoder", "encoder_line": lines[0], "seconds": seconds,
+          "solve_seconds": r.solve_seconds, "chain_steps_per_s": r.chain_steps / r.solve_seconds,
+          "bit_acc": r.bit_accs, "losses": r.losses, "launches": counts, "gpu": gpu})
+    return counts
+
+
+def _http(method, url, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = json.loads(r.read())
+        check(r.status == 200, f"{url}: HTTP {r.status}")
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+# A burst of concurrent POSTs from a process of its own, as remote clients would
+# send them: in the server's process the clients' JSON work would hold its GIL.
+_CLIENT = r"""
+import json, sys, time, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+url, payloads = json.load(sys.stdin)
+def post(p):
+    req = urllib.request.Request(url, data=json.dumps(p).encode(), headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = json.loads(r.read())
+    return {"ms": (time.perf_counter() - t0) * 1e3, "key_bits": body["key_bits"], "image": body.get("image")}
+t0 = time.perf_counter()
+with ThreadPoolExecutor(len(payloads)) as ex:
+    out = list(ex.map(post, payloads))
+print(json.dumps({"wall_s": time.perf_counter() - t0, "replies": out}))
+"""
+
+
+def _burst(url, payloads):
+    r = subprocess.run([sys.executable, "-c", _CLIENT], input=json.dumps([url, payloads]), capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"client process failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout)
+
+
+def _pcts(ms):
+    ms = sorted(ms)
+    return {"n": len(ms), "p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(len(ms) * 0.99))]}
+
+
+def phase_serve(torch, port, gpu):
+    """(c) ``cli.serve`` at full width (buckets 1 and 4, perceptual, 20 steps,
+    4 restarts, encoder init of 100 steps, a 16-user registry) on port 0:
+    concurrent generation from a client process, attribution,
+    identification, stats; the engine's own batch times; then the tiny
+    configuration served, where identify must name the planted users."""
+    import base64
+    import io
+
+    import numpy as np
+
+    keys_mod, serving, cuda_mod = port["keys"], port["serving"], port["_cuda"]
+    reg_path = os.path.join(OUT, "registry16.json")
+    key_len = int(FULL[FULL.index("--key_len") + 1])
+    reg = keys_mod.KeyRegistry.issue(16, key_len, min_distance=key_len // 4, seed=0)
+    reg.save(reg_path)
+    t0 = time.time()
+    engine, server = port["cli_serve"].build_server(
+        FULL + ["--loss", "perceptual", "--steps", "20", "--n", "4", "--buckets", "1,4", "--port", "0",
+                "--init", "encoder", "--encoder_steps", "100", "--registry", reg_path])
+    startup = time.time() - t0
+    serving.serve_forever_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    lat = {"attribute": [], "identify": [], "stats": []}
+    try:
+        check(engine.stats()["compiled"] == ["attribute:1", "attribute:4", "generate:1", "generate:4"],
+              f"warmed buckets {engine.stats()['compiled']}")
+        cuda_mod.reset_launches()
+        solo, solo_ms = _http("POST", base + "/v1/generate", {"seed": 100, "encoding": "float_list"})
+        before = engine.stats()["generate"]["batches"]
+        reqs = [{"seed": 100 + i, "encoding": "float_list"} if i % 2 == 0 else
+                {"seed": 100 + i, "user": reg.names[i]} for i in range(8)]
+        burst8 = _burst(base + "/v1/generate", reqs)
+        batches = engine.stats()["generate"]["batches"] - before
+        check(batches < 8, f"8 concurrent requests ran as {batches} batches: nothing coalesced")
+        for i, reply in enumerate(burst8["replies"]):
+            if "user" in reqs[i]:
+                check(reply["key_bits"] == reg.keys[i].tolist(), f"user {reg.names[i]}: planted key not returned")
+        http_same = float(np.abs(np.asarray(burst8["replies"][0]["image"]) - np.asarray(solo["image"])).max())
+        check(http_same <= 1e-3, f"seed 100 served twice: {http_same:.3e}")
+        gen_counts = cuda_mod.launch_counts()
+        for name in ("blur4", "upblur4"):
+            check(gen_counts[name] > 0, f"kernel {name} was not launched by served generation")
+        # generate images/s at bucket 4: 16 concurrent PNG requests, four full batches; the
+        # first burst starts 16 server threads, the second finds the server warm
+        burst16 = [_burst(base + "/v1/generate", [{"seed": s} for s in range(200 + k, 216 + k)]) for k in (0, 16)]
+        gen_ips = [16 / b["wall_s"] for b in burst16]
+
+        cuda_mod.reset_launches()
+        buf = io.BytesIO()
+        np.save(buf, np.asarray(solo["image"], np.float32))
+        dec, ms = _http("POST", base + "/v1/attribute", {"image_npy_b64": base64.b64encode(buf.getvalue()).decode()})
+        lat["attribute"].append(ms)
+        check(len(dec["key_bits"]) == key_len and dec["loss"] is not None, f"attribute response {dec}")
+        user_img = engine.generate(seed=7, user=reg.names[1])["image"]
+        ident, ms = _http("POST", base + "/v1/identify", {"image": user_img.tolist()})
+        lat["identify"].append(ms)
+        check(ident["user"] in reg.names and len(ident["key_bits"]) == key_len, f"identify response {ident}")
+        attr_counts = cuda_mod.launch_counts()
+        check_all_launched(attr_counts, "served attribution")
+        stats, ms = _http("GET", base + "/v1/stats")
+        lat["stats"].append(ms)
+        # the layers under a served generation, each alone: the engine (queue + batch,
+        # no HTTP) solo and as a burst of 16, and the server's encodings of one image
+        solo_engine = []
+        for i in range(5):
+            t1 = time.perf_counter()
+            engine.generate(seed=300 + i)
+            solo_engine.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        for f in [engine.generate(seed=400 + i, sync=False) for i in range(16)]:
+            f.result(timeout=600)
+        engine_ips = 16 / (time.perf_counter() - t1)
+        img = np.asarray(solo["image"], np.float32)
+        encode_ms = {}
+        for name, fn in (("png_b64", lambda: port["server"]._png_b64(img)),
+                         ("float_list_json", lambda: json.dumps({"image": img.tolist()}))):
+            times = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t1) * 1e3)
+            encode_ms[name] = statistics.median(times)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+    # the engine's batch function alone (no HTTP, no queue), worker stopped: one seed at
+    # bucket 1 and 4, and each bucket's time, host clock around a synchronize
+    batch_ms = {}
+    for kind, rows_of in (("generate", lambda b: [{"seed": 100 + i, "bits": None} for i in range(b)]),
+                          ("attribute", lambda b: [{"image": np.asarray(solo["image"], np.float32)}] * b)):
+        for b in (1, 4):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = engine.run_bucket(kind, b, rows_of(b))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            batch_ms[f"{kind}:{b}"] = statistics.median(times)
+            if kind == "generate":
+                batch_ms[f"rows:{b}"] = out[0]
+    same_seed = float(np.abs(batch_ms.pop("rows:4")[0] - batch_ms.pop("rows:1")[0]).max())
+    check(same_seed <= 1e-3, f"seed 100 at bucket 1 vs bucket 4: {same_seed:.3e}")
+    emit({"phase": "serve", "img_size": 256, "loss": "perceptual", "steps": 20, "restarts": 4, "buckets": [1, 4],
+          "encoder_steps": 100, "registry_users": 16, "startup_seconds": startup,
+          "latency_client": {"generate_solo_float_list_ms": solo_ms,
+                             "generate_burst8_half_float_list": _pcts([r["ms"] for r in burst8["replies"]]),
+                             "generate_burst16_png_first": _pcts([r["ms"] for r in burst16[0]["replies"]]),
+                             "generate_burst16_png_second": _pcts([r["ms"] for r in burst16[1]["replies"]]),
+                             **{k: _pcts(v) for k, v in lat.items()}},
+          "generate_images_per_s_bucket4_png_first_second": gen_ips, "engine_batch_ms": batch_ms,
+          "engine_generate_solo_ms": _pcts(solo_engine), "engine_generate_images_per_s_burst16": engine_ips,
+          "server_encode_ms": encode_ms,
+          "seed100_bucket1_vs_bucket4_max_abs": same_seed, "seed100_http_twice_max_abs": http_same,
+          "generate_batches_for_8": batches, "identified": ident["user"], "planted": reg.names[1],
+          "stats": stats, "launches_generate": gen_counts, "launches_attribute_identify": attr_counts, "gpu": gpu})
+
+    # the tiny configuration: identify names the planted user
+    C, pl = port["config"], port["pipeline"]
+    mcfg = C.ModelConfig(**TINY)
+    pipe = pl.build_pipeline(mcfg, C.FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000),
+                             generator=torch.Generator().manual_seed(TINY_SEED), want_lpips=False)
+    treg = keys_mod.KeyRegistry.issue(8, key_len=8, min_distance=4, seed=0)
+    tiny = serving.InferenceEngine(pipe, acfg=C.AttributionConfig(steps=300, n_starts=4, lr=0.2, loss="mse"),
+                                   cfg=serving.ServeConfig(buckets=(1, 4)), seed=0, registry=treg).start()
+    try:
+        found = []
+        for i, user in enumerate(("user_00003", "user_00006")):
+            gen = tiny.generate(seed=77 + i, user=user)
+            found.append(tiny.identify(gen["image"])["user"])
+    finally:
+        tiny.stop()
+    emit({"phase": "serve_tiny", "planted": ["user_00003", "user_00006"], "identified": found})
+    check(found == ["user_00003", "user_00006"], f"tiny served identify named {found}")
+    return attr_counts
+
+
 def main() -> int:
     import torch
 
@@ -622,7 +970,9 @@ def main() -> int:
             ("tf32", "ops.tf32"), ("config", "config"), ("attacks", "attacks"), ("lhs", "utils.lhs"),
             ("state", "checkpoints.state"),
             ("pipeline", "fingerprint.pipeline"), ("attribute", "fingerprint.attribute"),
-            ("cli_generate", "cli.generate"), ("cli_attribute", "cli.attribute"))}
+            ("encoder", "fingerprint.encoder"), ("keys", "fingerprint.keys"), ("serving", "serving"),
+            ("server", "serving.server"),
+            ("cli_generate", "cli.generate"), ("cli_attribute", "cli.attribute"), ("cli_serve", "cli.serve"))}
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -635,7 +985,10 @@ def main() -> int:
     t0 = time.time()
     lib = port["_cuda"].build()
     port["_cuda"].library()
+    import numpy
+
     emit({"phase": "device", "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "numpy": numpy.__version__, "python": sys.version.split()[0],
           "library": os.path.relpath(str(lib), ROOT), "build_seconds": time.time() - t0})
 
     mods = (port["up_cuda"], port["vgg_cuda"], port["slice_cuda"], port["upf"])
@@ -647,6 +1000,15 @@ def main() -> int:
     phase_attacks(torch, port)
     phase_robust_recovery(torch, port)
     attacked_counts = phase_attacked_attribute(torch, port, gpu)
+    t0 = time.time()
+    encoder_counts = phase_encoder(torch, port, gpu)
+    emit({"phase": "encoder_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    attribute_encoder_counts = phase_attribute_encoder(torch, port, gpu)
+    emit({"phase": "attribute_encoder_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    serve_counts = phase_serve(torch, port, gpu)
+    emit({"phase": "serve_done", "seconds": time.time() - t0})
 
     # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
     through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
@@ -660,6 +1022,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PORT}/{k.source}", "replaces": k.replaces,
             "launches": counts[name], "launches_attacked_path": attacked_counts[name],
+            "launches_encoder_training": encoder_counts[name],
+            "launches_attribute_encoder_path": attribute_encoder_counts[name],
+            "launches_served_attribution": serve_counts[name],
             "max_abs_err": max(launch["err"], agg[which] if which else max(agg["err_fwd"], agg["err_dx"])),
             "ms": launch["ms"], "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
             "bound_by": max(launch["bound_by"], key=launch["bound_by"].get),

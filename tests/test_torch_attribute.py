@@ -215,7 +215,7 @@ def test_cli_attribute_writes_reference_layout(tmp_path):
 
 
 def test_cli_refuses_unported_flags():
-    for extra in (["--init", "encoder"], ["--model", "biggan"], ["--dtype", "bfloat16"]):
+    for extra in (["--model", "biggan"], ["--dtype", "bfloat16"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli_attribute.run(["--device", "cpu", "--random_init"] + extra)
 
@@ -225,7 +225,10 @@ def test_port_never_imports_jax():
         "import sys, torch\n"
         f"from {PORT}.config import ModelConfig, FingerprintConfig, AttributionConfig\n"
         f"from {PORT}.fingerprint import pipeline as pl, attribute as attr\n"
-        f"from {PORT}.cli import attribute, generate\n"
+        f"from {PORT}.cli import attribute, generate, keys, serve\n"
+        f"from {PORT}.fingerprint import encoder, keys as fkeys\n"
+        f"from {PORT}.eval import identification, study\n"
+        f"from {PORT}.serving import engine, server\n"
         "m = ModelConfig(img_size=8, style_dim=16, n_mlp=1, channel_max=16)\n"
         "p = pl.build_pipeline(m, FingerprintConfig(key_len=4, shift=8, n_pca_samples=100), device='cpu')\n"
         "imgs = pl.generate_fingerprinted(p, 1, torch.Generator().manual_seed(0))[0]\n"
