@@ -190,7 +190,7 @@ def run(argv=None) -> AttributeRun:
             chunk_starts=args.chunk_starts,
             attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
             alpha_init=None if alpha_init_all is None else alpha_init_all[c0:c1],
-            key_init=None if key_init_all is None else key_init_all[c0:c1])
+            key_init=None if key_init_all is None else key_init_all[c0:c1], **pl.solver_kwargs(pipe))
         _sync(device)
         dt += time.time() - t0
         ev = attr.evaluate_attribution(res, true_bits[c0:c1])

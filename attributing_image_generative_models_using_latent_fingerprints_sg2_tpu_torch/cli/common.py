@@ -24,9 +24,13 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (their plain versions)")
-    p.add_argument("--model", type=str, default="sg2", help="GAN model (sg2)")
+    p.add_argument("--model", type=str, default="sg2", choices=["sg2", "biggan"],
+                   help="GAN model: sg2 | biggan (BigGAN-deep-256)")
+    p.add_argument("--biggan_label", type=str, default="golden retriever",
+                   help="BigGAN class: an ImageNet label name or an integer class id")
     p.add_argument("--ckpt", type=str, default="./checkpoint/550000.pt",
-                   help="generator checkpoint (rosinality .pt, or .npz with the same names)")
+                   help="generator checkpoint (rosinality .pt, or .npz with the same names; "
+                   "a pytorch_pretrained_biggan state dict for --model biggan)")
     p.add_argument("--random_init", action="store_true",
                    help="random generator weights instead of --ckpt")
     p.add_argument("--img_size", type=int, default=256, help="generator output size")
@@ -80,13 +84,11 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 
 
 def _refuse(args: argparse.Namespace) -> None:
-    checks = [
-        ("--model " + args.model, args.model != "sg2"),
-        ("--dtype " + args.dtype, args.dtype != "float32"),
-    ]
-    for flag, is_set in checks:
-        if is_set:
-            raise SystemExit(f"{flag}: not yet ported to the PyTorch package")
+    if args.dtype != "float32":
+        raise SystemExit(f"--dtype {args.dtype}: not yet ported to the PyTorch package")
+    if getattr(args, "init", "lhs") == "encoder" and args.model != "sg2":
+        raise SystemExit(f"--init encoder renders through StyleGAN2's synthesis; --model {args.model} "
+                         "is not supported")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -102,7 +104,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         model=ModelConfig(
             model=args.model, img_size=args.img_size, style_dim=args.style_dim,
             n_mlp=args.n_mlp, channel_max=args.channel_max,
-            ckpt=None if args.random_init else args.ckpt,
+            ckpt=None if args.random_init else args.ckpt, biggan_label=args.biggan_label,
         ),
         fingerprint=FingerprintConfig(
             key_len=args.key_len, shift=args.shift, sigma=args.sigma, sd_moved=float(args.sd),

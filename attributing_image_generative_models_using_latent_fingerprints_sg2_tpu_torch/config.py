@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 class ModelConfig:
     """Generator architecture (ref ``src/params.py:4-12``)."""
 
-    model: str = "sg2"
+    model: str = "sg2"  # "sg2" | "biggan"
     img_size: int = 256
     style_dim: int = 512
     n_mlp: int = 8
@@ -27,10 +27,13 @@ class ModelConfig:
     blur_kernel: Tuple[int, ...] = (1, 3, 3, 1)
     lr_mlp: float = 0.01
     ckpt: Optional[str] = "./checkpoint/550000.pt"
+    biggan_label: str = "golden retriever"
 
     @property
     def style_space_dim(self) -> int:
-        return self.style_dim
+        """The fingerprinted latent's dimension: w for sg2, BigGAN's 128-d
+        truncated noise for biggan."""
+        return self.style_dim if self.model == "sg2" else 128
 
     @property
     def n_latent(self) -> int:

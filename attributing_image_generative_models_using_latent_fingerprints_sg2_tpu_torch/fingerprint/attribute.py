@@ -12,6 +12,10 @@ elementwise and the loss is per element, so one update over [S, n, ...]
 tensors is S*n independent chains.  Target LPIPS features are extracted
 once, normalized, and held constant.
 
+The generator is StyleGAN2 (w broadcast to every style slot, the fixed noise)
+or, with ``mcfg.model == "biggan"``, BigGAN-deep (its class one-hot and
+truncation; ``biggan_cfg`` / ``class_onehot`` / ``truncation``).
+
 Adam is written out: b1=0.9, b2=0.999, eps=1e-8 outside the sqrt, bias
 correction by count+1, rate lr * exp(-decay * (count+1)) with count from 0
 (the reference's optax chain).  The reported per-restart loss is the last
@@ -30,6 +34,7 @@ from ..attacks import make_solver_attack
 from ..attacks.blur import separable_blur
 from ..config import AttackConfig, AttributionConfig, ModelConfig
 from ..losses import lpips as lpips_mod
+from ..models import biggan as bg
 from ..models import stylegan2 as sg2
 from ..utils.lhs import fold_in, lhs_alpha_init_batch
 from .embed import FingerprintBasis, alpha_bound_penalty, bit_accuracy, content_latent, key_offset
@@ -46,6 +51,10 @@ class AttributionResult:
     loss: torch.Tensor  # [S] best final (pre-update) loss
     losses_all: torch.Tensor  # [S, n] final loss of every restart (survivors only under pruning)
     best_start: torch.Tensor  # [S] argmin restart index (the ORIGINAL index under pruning)
+    # [S, n, K] key logits of every restart (survivors only under pruning): the
+    # POST-update state, one step after losses_all's PRE-update losses; left as
+    # the solve ended by polish.  Funds model_attribution.restart_coherence.
+    key_logits_all: Optional[torch.Tensor] = None
 
 
 def ctf_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -72,6 +81,8 @@ def ctf_sigmas(acfg: AttributionConfig, steps: int) -> List[Optional[float]]:
 def make_attribution_step(
     gen_params, lpips_params, basis: FingerprintBasis, noise, mcfg: ModelConfig,
     acfg: AttributionConfig, target_feats, targets, attack_cfg: Optional[AttackConfig] = None,
+    biggan_cfg: Optional[bg.BigGANConfig] = None, class_onehot: Optional[torch.Tensor] = None,
+    truncation: float = 0.4,
 ) -> Tuple[Callable, Callable]:
     """(step, per_elem_loss) for [S, n] restarts.
 
@@ -83,7 +94,9 @@ def make_attribution_step(
     and returns the pre-update per-element loss [S, n].  With
     ``acfg.solver_attack != "None"`` the estimate goes through that attack's
     channel model before the loss (``attack_cfg`` gives the strengths); with
-    ``ctf_sigma`` (mse) estimate and target are blurred by it.
+    ``ctf_sigma`` (mse) estimate and target are blurred by it.  BigGAN
+    (``mcfg.model == "biggan"``) renders with ``class_onehot`` [1, classes]
+    at the host float ``truncation``.
     """
     nl = mcfg.n_latent
     solver_attack = None
@@ -96,8 +109,11 @@ def make_attribution_step(
         s_, n_ = alpha.shape[0], alpha.shape[1]
         k = torch.sigmoid(key_logits)
         wx = content_latent(basis, alpha.reshape(s_ * n_, -1)) + key_offset(basis, k.reshape(s_ * n_, -1))
-        wplus = wx[:, None, :].expand(-1, nl, -1)
-        imgs = sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel)
+        if mcfg.model == "biggan":
+            imgs = bg.generate(gen_params, wx, class_onehot.expand(wx.shape[0], -1), truncation, biggan_cfg)
+        else:
+            wplus = wx[:, None, :].expand(-1, nl, -1)
+            imgs = sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel)
         if solver_attack is not None:
             imgs = solver_attack(imgs)
         if acfg.loss == "perceptual":
@@ -218,12 +234,15 @@ def polish_key_bits(
     acfg: AttributionConfig,
     sweeps: int = 2,
     attack_cfg: Optional[AttackConfig] = None,
+    biggan_cfg: Optional[bg.BigGANConfig] = None,
+    class_onehot: Optional[torch.Tensor] = None,
+    truncation: float = 0.4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Polish an existing attribution against its targets (see
     :func:`_polish_loop`); decode with ``round(sigmoid(key_logits))``."""
     target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg)
     _, per_elem = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
-                                        target_feats, tgt, attack_cfg)
+                                        target_feats, tgt, attack_cfg, biggan_cfg, class_onehot, truncation)
     return _polish_loop(per_elem, alpha, key_logits, sweeps, margin=acfg.polish_margin)
 
 
@@ -238,12 +257,16 @@ def attribute(
     attack_cfg: Optional[AttackConfig] = None,
     alpha_init: Optional[torch.Tensor] = None,
     key_init: Optional[torch.Tensor] = None,
+    biggan_cfg: Optional[bg.BigGANConfig] = None,
+    class_onehot: Optional[torch.Tensor] = None,
+    truncation: float = 0.4,
 ) -> AttributionResult:
     """Solve attribution for a batch of targets, all samples x restarts at once.
 
     ``alpha_init`` / ``key_init`` ([S, n, D-K] / [S, n, K]) replace the
     centered-LHS / zero restart initialization (drawn from ``generator``);
-    ``n_starts`` overrides ``acfg.n_starts`` (a restart chunk)."""
+    ``n_starts`` overrides ``acfg.n_starts`` (a restart chunk).  BigGAN
+    pipelines pass ``pipeline.solver_kwargs(pipe)``."""
     n_starts = acfg.n_starts if n_starts is None else n_starts
     steps = acfg.steps
     device = targets.device
@@ -257,7 +280,7 @@ def attribute(
 
     target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg)
     step, per_elem = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
-                                           target_feats, tgt, attack_cfg)
+                                           target_feats, tgt, attack_cfg, biggan_cfg, class_onehot, truncation)
     sigmas = ctf_sigmas(acfg, steps)
     state = init_state(alpha0, key0)
     per = None
@@ -291,6 +314,7 @@ def attribute(
         loss=loss_best,
         losses_all=final_per,
         best_start=best,
+        key_logits_all=state["key"],
     )
 
 
@@ -334,6 +358,7 @@ def attribute_chunked(
             loss=torch.minimum(res.loss, best.loss),
             losses_all=torch.cat([best.losses_all, res.losses_all], dim=1),
             best_start=torch.where(take_new, res.best_start + c0, best.best_start),
+            key_logits_all=torch.cat([best.key_logits_all, res.key_logits_all], dim=1),
         )
     return best
 

@@ -1,6 +1,7 @@
-"""PCA of the generator's W space, on the device (``torch.linalg.eigh``).
+"""PCA of the generator's latent space, on the device (``torch.linalg.eigh``).
 
-Counterpart of the reference package's ``fingerprint/pca.py``: components
+Counterpart of the reference package's ``fingerprint/pca.py`` (StyleGAN2's W
+space, BigGAN's truncated noise): components
 are eigenvectors of the sample covariance (denominator n-1) ranked by
 descending variance, each row's sign fixed so its largest-|.| coordinate is
 positive.
@@ -13,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from ..models import biggan as bg
 from ..models import stylegan2 as sg2
 
 
@@ -52,3 +54,20 @@ def perform_pca_for_params(
     if z is None:
         z = torch.randn((n_samples, dim), generator=generator)
     return pca_from_samples(sg2.mapping_network(params, z.to(device), lr_mlp))
+
+
+@torch.no_grad()
+def pca_from_truncated_noise(
+    truncation: float,
+    n_samples: int,
+    dim: int = 128,
+    *,
+    device,
+    generator: Optional[torch.Generator] = None,
+    z: Optional[torch.Tensor] = None,
+) -> PCABasis:
+    """BigGAN: PCA of the truncated-normal latents themselves [n_samples, dim]
+    (drawn from ``generator``, or the given ``z``)."""
+    if z is None:
+        z = bg.truncated_noise(n_samples, truncation, dim, generator)
+    return pca_from_samples(torch.as_tensor(z, dtype=torch.float32).to(device))

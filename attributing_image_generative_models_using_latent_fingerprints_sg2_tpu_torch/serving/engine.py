@@ -14,7 +14,9 @@ no mesh):
 - **One worker thread owns all device work.**  Clients block on futures;
   the worker drains the queue kind whose head has waited longest.
 
-Attribution requests run the batched solver over the coalesced targets.
+Generation and attribution route by the pipeline's model family (StyleGAN2
+or BigGAN).  Attribution requests run the batched solver over the coalesced
+targets.
 Its restarts are drawn per batch from a counter, so an attribution is
 reproducible given (engine seed, attribute-batch index, batch composition),
 not per request.  With an encoder (``fingerprint/encoder.py``) the restarts
@@ -37,7 +39,7 @@ from ..config import AttackConfig, AttributionConfig
 from ..fingerprint import attribute as attr_mod
 from ..fingerprint import encoder as enc_mod
 from ..fingerprint.embed import embed
-from ..fingerprint.pipeline import Pipeline, synthesize
+from ..fingerprint.pipeline import Pipeline, solver_kwargs, synthesize
 from ..utils.lhs import fold_in
 
 KINDS = ("generate", "attribute")
@@ -362,7 +364,8 @@ class InferenceEngine:
             kw = dict(alpha_init=a0, key_init=k0)
         res = attr_mod.attribute(p.gen_params, p.lpips_params, p.basis, p.noise, targets, mcfg=p.mcfg,
                                  acfg=acfg, generator=g,
-                                 attack_cfg=self.attack_cfg if acfg.solver_attack != "None" else None, **kw)
+                                 attack_cfg=self.attack_cfg if acfg.solver_attack != "None" else None,
+                                 **solver_kwargs(p), **kw)
         return res.key_bits.cpu().numpy(), res.key_logits.cpu().numpy(), res.loss.cpu().numpy()
 
     def _execute(self, kind: str, batch) -> None:

@@ -1,5 +1,7 @@
 """Image post-processing and PNG output (the reference's ``make_image`` /
-``store_results`` layout: original/ watermarked/ watermark_pos/ watermark_neg/)."""
+``store_results`` layout: original/ watermarked/ watermark_pos/ watermark_neg/),
+and image files in: PIL decode, center crop and area resample (the reference
+package's ``training/folder.py`` PIL path)."""
 
 from __future__ import annotations
 
@@ -67,3 +69,44 @@ def watermark_images(wx_img_u8: np.ndarray, w0_img_u8: np.ndarray):
     """Positive / negative watermark visualizations: clip(wx - w0) and the reverse."""
     diff = wx_img_u8.astype(np.int16) - w0_img_u8.astype(np.int16)
     return np.clip(diff, 0, 255).astype(np.uint8), np.clip(-diff, 0, 255).astype(np.uint8)
+
+
+def area_resample(img: np.ndarray, target: int) -> np.ndarray:
+    """Center-crop [H, W, 3] uint8 to a square and box-resample it to
+    [target, target, 3]: output pixel i averages the input span
+    [i*s/t, (i+1)*s/t) with fractional edge coverage, separably, in float64,
+    rounding half up.  Down- and up-sampling alike."""
+    h, w = img.shape[:2]
+    s = min(h, w)
+    y0, x0 = (h - s) // 2, (w - s) // 2
+    out = img[y0:y0 + s, x0:x0 + s].astype(np.float64)
+    if s != target:
+        m = _axis_matrix(s, target)
+        out = np.einsum("ts,shc->thc", m, out)
+        out = np.einsum("ts,hsc->htc", m, out)
+    return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+
+
+def _axis_matrix(s: int, t: int) -> np.ndarray:
+    """[t, s] row-stochastic box-filter taps (fractional edge coverage)."""
+    scale = s / t
+    m = np.zeros((t, s), dtype=np.float64)
+    for i in range(t):
+        a, b = i * scale, (i + 1) * scale
+        for j in range(int(np.floor(a)), min(int(np.ceil(b)), s)):
+            m[i, j] = (min(j + 1.0, b) - max(float(j), a)) / scale
+    return m
+
+
+def load_image(path: str, target: int) -> np.ndarray:
+    """An image file (anything PIL decodes) -> [target, target, 3] uint8."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+    return area_resample(arr, target)
+
+
+def to_training_range(batch_u8: np.ndarray) -> np.ndarray:
+    """uint8 [0, 255] -> float32 [-1, 1] (the generator's output range)."""
+    return batch_u8.astype(np.float32) / 127.5 - 1.0

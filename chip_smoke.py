@@ -86,6 +86,28 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                image at bucket 1 and 4 (1e-3).  Then the tiny
                configuration served (300 steps): identify names the planted
                users.
+12. biggan  -- BigGAN-deep-256 at full width (random weights from a seed, key
+               on the last 32 of its 128 axes, perceptual): ``cli.generate
+               --model biggan`` writes its PNGs; ``cli.attribute --model
+               biggan`` (2 samples x 4 restarts, 20 steps) launches the LPIPS
+               kernels (``conv3x3_relu``, both ``vgg_slice1``) and none of the
+               StyleGAN2 FIR kernels; the 16-chain solve step alone (CUDA
+               events, median of 5), its peak memory and its device time by
+               kernel (``torch.profiler``), generation images/s at
+               batch 16, the forward's multiply-adds counted from the config.
+               Then a tiny BigGAN (32px, attention) recovers planted keys (200
+               steps, 4 restarts, 3 samples) as phase 3's generator does.
+13. model_attribution -- ``cli.model_attribute --random_init`` at full width:
+               two StyleGAN2s at 256px, self-test of 2 targets, ``--calibrate 1``,
+               4 restarts x 20 steps, perceptual, ``--out`` JSON; its loss matrix,
+               decisions, wall time and launch counts (all six kernels).  Then
+               ``attribute_model`` over a mixed registry {StyleGAN2-256,
+               BigGAN-deep-256} with one key length, one planted target of each:
+               its loss matrix.  Then the tiny configuration: a registry of two
+               generators and a held-out one; every registry target is named for
+               its model and every held-out target is rejected at the threshold
+               ``cli.model_attribute.calibrate`` sets from in-distribution solves
+               (450 mse steps, 4 restarts, as the reference package's test).
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -634,9 +656,9 @@ def phase_attacked_attribute(torch, port, gpu):
     return counts
 
 
-def device_ms_per_call(torch, fn, calls: int = 3) -> float:
-    """Device time of ``fn`` (the sum of its CUDA kernels' self times under
-    ``torch.profiler``), per call."""
+def device_kernel_ms(torch, fn, calls: int = 3) -> dict:
+    """Device time of ``fn`` per call by CUDA kernel name (the kernels' self
+    times under ``torch.profiler``), ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -645,14 +667,19 @@ def device_ms_per_call(torch, fn, calls: int = 3) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    out = {}
     for e in prof.key_averages():
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
         if dev > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            total += dev
-    return total / 1e3 / calls
+            out[e.key] = out.get(e.key, 0.0) + dev / 1e3 / calls
+    return out
+
+
+def device_ms_per_call(torch, fn, calls: int = 3) -> float:
+    """Device time of ``fn`` (the sum of its CUDA kernels' self times), per call."""
+    return sum(device_kernel_ms(torch, fn, calls).values())
 
 
 def phase_encoder(torch, port, gpu):
@@ -953,6 +980,206 @@ def phase_serve(torch, port, gpu):
     return attr_counts
 
 
+BIGGAN_FULL = ["--device", "cuda", "--random_init", "--model", "biggan", "--img_size", "256", "--key_len", "32",
+               "--shift", "96"]
+# the model configurations of phases 12-13 built through the library (the CLI flags above and FULL give the same)
+SG2_MCFG = dict(img_size=256)
+BIGGAN_MCFG = dict(model="biggan", img_size=256)
+# a 32px BigGAN with attention before its last layer: recovers planted keys in 200 mse steps
+TINY_BIGGAN = dict(z_dim=32, class_embed_dim=16, channel_width=8, num_classes=10, output_dim=32,
+                   attention_layer_position=2, layers=((True, 16, 16), (True, 16, 8), (True, 8, 4)), n_stats=5)
+
+
+def biggan_forward_macs(cfg) -> dict:
+    """Multiply-adds of one image through ``models.biggan.generate``: gen_z, every
+    block's four convs (3x3 ones at the upsampled size) and its batch-norm gains,
+    the attention block (three 1x1 convs, two products, the output conv), the RGB
+    conv.  Elementwise work is not counted."""
+    ch, r = cfg.channel_width, 4
+    total = cfg.cond_dim * 16 * 16 * ch + cfg.num_classes * cfg.class_embed_dim
+    attention = 0
+    for i, (up, in_m, out_m) in enumerate(cfg.layers):
+        cin, cout = in_m * ch, out_m * ch
+        if i == cfg.attention_layer_position:
+            hw, c = r * r, cin
+            attention = (2 * hw * c * (c // 8) + hw * c * (c // 2) + hw * (hw // 4) * (c // 8)
+                         + hw * (hw // 4) * (c // 2) + hw * (c // 2) * c)
+            total += attention
+        mid, ro = cin // 4, (2 * r if up else r)
+        total += cin * mid * r * r + 2 * mid * mid * 9 * ro * ro + mid * cout * ro * ro
+        total += 2 * cfg.cond_dim * (cin + 3 * mid)
+        r = ro
+    total += cfg.layers[-1][2] * ch * 3 * 9 * r * r
+    return {"gmac": total / 1e9, "attention_gmac": attention / 1e9}
+
+
+def phase_biggan(torch, port, gpu):
+    """(a) BigGAN-deep-256 through cli.generate and cli.attribute at full width,
+    (b) the 16-chain solve step and batch-16 generation alone, (c) a tiny BigGAN
+    recovers planted keys."""
+    from PIL import Image
+    import numpy as np
+
+    C, pl, attr, bg, cuda_mod = port["config"], port["pipeline"], port["attribute"], port["biggan"], port["_cuda"]
+    save = os.path.join(OUT, "biggan_generate")
+    t0 = time.time()
+    rc = port["cli_generate"].main(BIGGAN_FULL + ["--sample_size", "4", "--save_dir", save])
+    gen_cli_seconds = time.time() - t0
+    check(rc == 0, f"cli.generate --model biggan returned {rc}")
+    pngs = [os.path.join(d, f) for d, _, fs in os.walk(save) for f in fs if f.endswith(".png")]
+    marked = [p for p in pngs if os.sep + "watermarked" + os.sep in p]
+    check(len(pngs) == 16 and len(marked) == 4, f"{len(pngs)} PNGs, {len(marked)} watermarked")
+    hw = BIGGAN_MCFG["img_size"]
+    for p in marked:
+        check(np.asarray(Image.open(p)).shape == (hw, hw, 3), f"{p}: shape")
+
+    steps, samples, starts = 20, 2, 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_mod.reset_launches()
+    r = port["cli_attribute"].run(BIGGAN_FULL + ["--loss", "perceptual", "--sample_size", str(samples), "--n",
+                                                 str(starts), "--steps", str(steps), "--save_dir",
+                                                 os.path.join(OUT, "biggan_attribute")])
+    counts = cuda_mod.launch_counts()
+    peak_cli = torch.cuda.max_memory_allocated()
+    check(os.path.exists(os.path.join(r.run_dir, "result.txt")), "cli.attribute --model biggan: no result.txt")
+    check(len(r.bit_accs) == samples and all(v == v and abs(v) < float("inf") for v in r.losses),
+          f"rows {r.bit_accs}, losses {r.losses}")
+    for name in ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd"):
+        check(counts[name] > 0, f"kernel {name} was not launched by the BigGAN solve")
+    for name in ("blur4", "upblur4", "upblur4_adj"):
+        check(counts[name] == 0, f"kernel {name} launched {counts[name]} times by the BigGAN solve")
+
+    # the 16-chain step alone (4 targets x 4 restarts), and generation at batch 16
+    mcfg = C.ModelConfig(**BIGGAN_MCFG)
+    pipe = pl.build_pipeline(mcfg, C.FingerprintConfig(key_len=32, shift=mcfg.style_space_dim - 32),
+                             generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        targets = torch.clamp(pl.generate_fingerprinted(pipe, 4, g)[0], -1.0, 1.0)
+        feats = [f[:, None] for f in port["lpips"].extract_features(pipe.lpips_params, targets)]
+    acfg = C.AttributionConfig(steps=20, n_starts=4, loss="perceptual")
+    step, _ = attr.make_attribution_step(pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, mcfg, acfg,
+                                         feats, None, **pl.solver_kwargs(pipe))
+    d_rest = pipe.basis.sigma_rest.shape[0]
+    alpha0 = (torch.rand((4, 4, d_rest), generator=g) * 2 - 1).to(pipe.device) * pipe.basis.sigma_rest
+    state = attr.init_state(alpha0, torch.zeros((4, 4, 32), device=pipe.device))
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step(holder["state"])
+
+    one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = median_ms(torch, one_step, reps=5, warmup=1)
+    peak16 = torch.cuda.max_memory_allocated()
+    by_kernel = device_kernel_ms(torch, one_step, calls=2)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    cuda_mod.reset_launches()
+    with torch.no_grad():
+        gen_ms = median_ms(torch, lambda: pl.generate_fingerprinted(pipe, 16, g), reps=5, warmup=1)
+        gen_by_kernel = device_kernel_ms(torch, lambda: pl.generate_fingerprinted(pipe, 16, g), calls=2)
+    check(all(v == 0 for v in cuda_mod.launch_counts().values()), "BigGAN generation launched a kernel")
+    macs = biggan_forward_macs(pipe.biggan_cfg)
+    emit({"phase": "biggan", "config": "BigGAN-deep-256 (random init)", "img_size": mcfg.img_size, "key_len": 32,
+          "loss": "perceptual", "forward_gmac_per_image": macs["gmac"], "attention_gmac_per_image": macs["attention_gmac"],
+          "cli_generate_seconds_4_images": gen_cli_seconds,
+          "generate_batch16_ms": gen_ms, "generate_images_per_s_batch16": 16e3 / gen_ms,
+          "generate_batch16_device_busy_ms": sum(gen_by_kernel.values()),
+          "generate_batch16_device_ms_top8": [[k[:90], v] for k, v in
+                                               sorted(gen_by_kernel.items(), key=lambda kv: -kv[1])[:8]],
+          "cli_attribute": {"samples": samples, "restarts": starts, "steps": steps, "solve_seconds": r.solve_seconds,
+                            "chain_steps_per_s": r.chain_steps / r.solve_seconds, "losses": r.losses,
+                            "bit_acc": r.bit_accs, "max_memory_allocated_bytes": peak_cli},
+          "step16_ms": step_ms, "step16_chain_steps_per_s": 16e3 / step_ms,
+          "step16_max_memory_allocated_bytes": peak16, "step16_device_busy_ms": sum(by_kernel.values()),
+          "step16_device_ms_top15": [[k[:90], v] for k, v in top], "launches": counts, "gpu": gpu})
+
+    # the tiny BigGAN: planted keys come back
+    tcfg = bg.BigGANConfig(**TINY_BIGGAN)
+    tm = C.ModelConfig(model="biggan", img_size=32, biggan_label="3")
+    tpipe = pl.build_pipeline(tm, C.FingerprintConfig(key_len=8, shift=24, sigma=1.0, n_pca_samples=2000),
+                              generator=torch.Generator().manual_seed(1), want_lpips=False, biggan_cfg=tcfg)
+    imgs, _, _, bits, _ = pl.generate_fingerprinted(tpipe, 3, torch.Generator().manual_seed(2))
+    t0 = time.time()
+    res = attr.attribute(tpipe.gen_params, None, tpipe.basis, tpipe.noise, imgs, mcfg=tm,
+                         acfg=C.AttributionConfig(steps=200, n_starts=4, lr=0.2, loss="mse"),
+                         generator=torch.Generator().manual_seed(3), **pl.solver_kwargs(tpipe))
+    torch.cuda.synchronize()
+    accs = [float(a) for a in attr.evaluate_attribution(res, bits)["bit_acc"].cpu()]
+    emit({"phase": "biggan_tiny", "bit_acc": accs, "exact": sum(a >= 1.0 for a in accs),
+          "loss": [float(v) for v in res.loss.cpu()], "seconds": time.time() - t0})
+    check(sum(accs) / 3 > 0.85, f"tiny BigGAN: mean bit accuracy {sum(accs) / 3:.3f} <= 0.85")
+    check(sum(a >= 1.0 for a in accs) >= 2, f"tiny BigGAN: fewer than 2 of 3 keys exact: {accs}")
+    return counts
+
+
+def phase_model_attribution(torch, port, gpu):
+    """(a) cli.model_attribute over two full-width StyleGAN2s, (b) attribute_model
+    over a mixed {StyleGAN2, BigGAN} registry, (c) the tiny open-set check."""
+    import numpy as np
+
+    C, pl, ma, cuda_mod = port["config"], port["pipeline"], port["model_attribution"], port["_cuda"]
+    fold_in = port["lhs"].fold_in
+    out = os.path.join(OUT, "model_attribution.json")
+    torch.cuda.synchronize()
+    cuda_mod.reset_launches()
+    t0 = time.time()
+    rec = port["cli_model_attribute"].run(FULL + ["--sample_size", "2", "--calibrate", "1", "--n", "4", "--steps", "20",
+                                                  "--out", out])
+    cli_seconds = time.time() - t0
+    counts = cuda_mod.launch_counts()
+    check_all_launched(counts, "cli.model_attribute")
+    with open(out) as fh:
+        check(json.load(fh) == rec, "the --out record differs from the run's")
+    lm = np.asarray(rec["loss_matrix"])
+    check(lm.shape == (2, 2) and bool(np.isfinite(lm).all()), f"loss matrix {rec['loss_matrix']}")
+    check(rec["open_set_threshold"] is not None and len(rec["decisions"]) == 2, "threshold or decisions missing")
+
+    # a mixed registry: one key length, each family its own latent
+    acfg = C.AttributionConfig(steps=20, n_starts=4, loss="perceptual")
+    sm, bm = C.ModelConfig(**SG2_MCFG), C.ModelConfig(**BIGGAN_MCFG)
+    sp = pl.build_pipeline(sm, C.FingerprintConfig(key_len=32, shift=sm.style_space_dim - 32), generator=fold_in(0, 0))
+    bp = pl.build_pipeline(bm, C.FingerprintConfig(key_len=32, shift=bm.style_space_dim - 32),
+                           generator=fold_in(0, 1), lpips_params=sp.lpips_params)
+    g = torch.Generator().manual_seed(5)
+    targets = torch.cat([torch.clamp(pl.generate_fingerprinted(p, 1, g)[0], -1.0, 1.0) for p in (sp, bp)])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mixed = ma.attribute_model({"sg2": sp, "biggan": bp}, targets, g, acfg)
+    torch.cuda.synchronize()
+    mixed_seconds = time.time() - t0
+    check(mixed.losses.shape == (2, 2) and bool(np.isfinite(mixed.losses).all()), f"mixed losses {mixed.losses}")
+    emit({"phase": "model_attribution", "img_size": sm.img_size, "loss": "perceptual", "restarts": 4, "steps": 20,
+          "cli": {"models": rec["models"], "loss_matrix": rec["loss_matrix"], "decisions": rec["decisions"],
+                  "open_set_threshold": rec["open_set_threshold"], "self_test_accuracy": rec["self_test_accuracy"],
+                  "wall_seconds": cli_seconds},
+          "mixed_registry": {"models": mixed.model_names, "key_len": 32, "loss_matrix": mixed.losses.tolist(),
+                             "best_model": mixed.best_model.tolist(), "margin": mixed.margin.tolist(),
+                             "seconds": mixed_seconds},
+          "launches": counts, "gpu": gpu})
+
+    # tiny: targets named for their model, a held-out model's rejected at the calibrated threshold
+    tm = C.ModelConfig(**TINY)
+    # the reference package's own test of this check: 450 mse steps, 4 restarts
+    tfp = C.FingerprintConfig(key_len=8, shift=56, sigma=1.0, n_pca_samples=2000)
+    tacfg = C.AttributionConfig(steps=450, n_starts=4, lr=0.2, loss="mse")
+    pipes = {n: pl.build_pipeline(tm, tfp, generator=torch.Generator().manual_seed(s), want_lpips=False)
+             for n, s in (("a", 0), ("b", 100), ("held", 777))}
+    registry = {n: pipes[n] for n in ("a", "b")}
+    tau = port["cli_model_attribute"].calibrate(registry, C.Config(model=tm, fingerprint=tfp, attribution=tacfg), 2,
+                                                torch.Generator().manual_seed(6), clip=False)
+    targets = torch.cat([pl.generate_fingerprinted(pipes[n], 2, torch.Generator().manual_seed(10 + i))[0]
+                         for i, n in enumerate(pipes)])
+    res = ma.attribute_model(registry, targets, torch.Generator().manual_seed(7), tacfg, open_set_threshold=tau)
+    chosen = [res.chosen(s) for s in range(6)]
+    emit({"phase": "model_attribution_tiny", "threshold": tau, "losses": res.losses.tolist(), "chosen": chosen,
+          "coherence": res.coherence.tolist()})
+    check(chosen == ["a", "a", "b", "b", None, None], f"tiny registry chose {chosen} (threshold {tau:.3e})")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -972,7 +1199,9 @@ def main() -> int:
             ("pipeline", "fingerprint.pipeline"), ("attribute", "fingerprint.attribute"),
             ("encoder", "fingerprint.encoder"), ("keys", "fingerprint.keys"), ("serving", "serving"),
             ("server", "serving.server"),
-            ("cli_generate", "cli.generate"), ("cli_attribute", "cli.attribute"), ("cli_serve", "cli.serve"))}
+            ("cli_generate", "cli.generate"), ("cli_attribute", "cli.attribute"), ("cli_serve", "cli.serve"),
+            ("cli_model_attribute", "cli.model_attribute"), ("model_attribution", "fingerprint.model_attribution"),
+            ("biggan", "models.biggan"), ("lpips", "losses.lpips"))}
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -1009,6 +1238,12 @@ def main() -> int:
     t0 = time.time()
     serve_counts = phase_serve(torch, port, gpu)
     emit({"phase": "serve_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    biggan_counts = phase_biggan(torch, port, gpu)
+    emit({"phase": "biggan_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    model_attribution_counts = phase_model_attribution(torch, port, gpu)
+    emit({"phase": "model_attribution_done", "seconds": time.time() - t0})
 
     # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
     through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
@@ -1025,6 +1260,8 @@ def main() -> int:
             "launches_encoder_training": encoder_counts[name],
             "launches_attribute_encoder_path": attribute_encoder_counts[name],
             "launches_served_attribution": serve_counts[name],
+            "launches_biggan_attribution": biggan_counts[name],
+            "launches_model_attribution": model_attribution_counts[name],
             "max_abs_err": max(launch["err"], agg[which] if which else max(agg["err_fwd"], agg["err_dx"])),
             "ms": launch["ms"], "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
             "bound_by": max(launch["bound_by"], key=launch["bound_by"].get),

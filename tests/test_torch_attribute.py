@@ -215,9 +215,11 @@ def test_cli_attribute_writes_reference_layout(tmp_path):
 
 
 def test_cli_refuses_unported_flags():
-    for extra in (["--model", "biggan"], ["--dtype", "bfloat16"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            cli_attribute.run(["--device", "cpu", "--random_init"] + extra)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        cli_attribute.run(["--device", "cpu", "--random_init", "--dtype", "bfloat16"])
+    # BigGAN is ported; the encoder that seeds --init encoder renders StyleGAN2 only
+    with pytest.raises(SystemExit, match="StyleGAN2's synthesis; --model biggan"):
+        cli_attribute.run(["--device", "cpu", "--random_init", "--model", "biggan", "--init", "encoder"])
 
 
 def test_port_never_imports_jax():
@@ -227,14 +229,32 @@ def test_port_never_imports_jax():
         f"from {PORT}.fingerprint import pipeline as pl, attribute as attr\n"
         f"from {PORT}.cli import attribute, generate, keys, serve\n"
         f"from {PORT}.fingerprint import encoder, keys as fkeys\n"
-        f"from {PORT}.eval import identification, study\n"
+        f"from {PORT}.eval import identification, study, model_attribution_study\n"
         f"from {PORT}.serving import engine, server\n"
+        f"from {PORT}.cli import model_attribute\n"
+        f"from {PORT}.fingerprint import model_attribution as ma\n"
+        f"from {PORT}.models import biggan as bg\n"
         "m = ModelConfig(img_size=8, style_dim=16, n_mlp=1, channel_max=16)\n"
-        "p = pl.build_pipeline(m, FingerprintConfig(key_len=4, shift=8, n_pca_samples=100), device='cpu')\n"
+        "fp = FingerprintConfig(key_len=4, shift=8, n_pca_samples=100)\n"
+        "p = pl.build_pipeline(m, fp, device='cpu')\n"
         "imgs = pl.generate_fingerprinted(p, 1, torch.Generator().manual_seed(0))[0]\n"
-        "r = attr.attribute(p.gen_params, p.lpips_params, p.basis, p.noise, imgs, mcfg=m,\n"
-        "                   acfg=AttributionConfig(steps=2, n_starts=2, loss='mse'))\n"
+        "acfg = AttributionConfig(steps=2, n_starts=2, loss='mse')\n"
+        "r = attr.attribute(p.gen_params, p.lpips_params, p.basis, p.noise, imgs, mcfg=m, acfg=acfg)\n"
         "assert r.key_bits.shape == (1, 4)\n"
+        "bcfg = bg.BigGANConfig(z_dim=16, class_embed_dim=4, channel_width=4, num_classes=3, output_dim=8,\n"
+        "                       attention_layer_position=0, layers=((True, 16, 1),), n_stats=3)\n"
+        "b = pl.build_pipeline(ModelConfig(model='biggan', img_size=8, biggan_label='2'), fp, device='cpu',\n"
+        "                      want_lpips=False, biggan_cfg=bcfg)\n"
+        "mr = ma.attribute_model({'sg2': p, 'biggan': b}, imgs, None, acfg)\n"
+        "assert mr.losses.shape == (2, 1) and mr.key_bits.shape == (1, 4)\n"
+        "p2 = pl.build_pipeline(m, fp, device='cpu', generator=torch.Generator().manual_seed(1))\n"
+        "rec = model_attribution_study.model_attribution_point({'a': p, 'b': p2}, {}, key_len=4, sigma=1.0,\n"
+        "    samples_per_model=2, steps=1, n_starts=2, clip_targets=False)\n"
+        "assert rec['n_eval_in_dist'] == 2\n"
+        "rec = model_attribute.run(['--device', 'cpu', '--random_init', '--img_size', '8', '--style_dim', '16',\n"
+        "    '--n_mlp', '1', '--channel_max', '16', '--key_len', '4', '--shift', '8', '--loss', 'mse', '--n', '2',\n"
+        "    '--steps', '1', '--sample_size', '2'])\n"
+        "assert len(rec['decisions']) == 2\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') or k == 'jaxlib'\n"
         "       or k.startswith('attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.')\n"
         "       or k == 'attributing_image_generative_models_using_latent_fingerprints_sg2_tpu']\n"
@@ -444,7 +464,9 @@ def test_chunked_restarts_equal_unchunked_given_the_same_starts(mse_problem):
             port["gen_params"], None, port["basis"], port["noise"], tgt, mcfg=port["mcfg"], acfg=acfg,
             alpha_init=a0, **k)
         whole, parts = solve(), solve(chunk_starts=2)
+        assert parts.key_logits_all.shape == (S_, N_ if not kw else 2, FKW["key_len"])
         if not kw:
+            np.testing.assert_array_equal(parts.key_logits_all.numpy(), whole.key_logits_all.numpy())
             np.testing.assert_array_equal(parts.best_start.numpy(), whole.best_start.numpy())
             np.testing.assert_allclose(parts.losses_all.numpy(), whole.losses_all.numpy(), rtol=1e-5)
             np.testing.assert_array_equal(parts.key_bits.numpy(), whole.key_bits.numpy())

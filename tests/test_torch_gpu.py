@@ -7,6 +7,8 @@ summation order over up to 9*C terms; the tensor-core kernels sum three TF32
 products of split operands in the tensor cores' float32 accumulators).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -270,3 +272,56 @@ def test_launches_are_counted(cuda):
     upfirdn2d_cuda.upblur4(torch.zeros(1, 4, 4, 3, device=cuda), K1)
     torch.cuda.synchronize()
     assert _cuda.launch_counts()["upblur4"] == 1
+
+
+def test_biggan_solve_step_matches_the_cpu(cuda):
+    """One perceptual solve step of a tiny BigGAN (16px, attention before its last
+    layer) on the card against the same step on the CPU (the kernels' plain
+    versions), from one state: the loss of every restart to 1e-4 relative, the
+    gradients to 1e-3 of their scale (cuDNN and the kernels sum in other orders,
+    and a ReLU within rounding of zero may switch).  The LPIPS kernels run; the
+    StyleGAN2 FIR kernels do not."""
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.config import (
+        AttributionConfig,
+        FingerprintConfig,
+        ModelConfig,
+    )
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.fingerprint import (
+        attribute,
+        pipeline,
+    )
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.losses import lpips
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.models import biggan
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.utils.tree import tree_to
+
+    bcfg = biggan.BigGANConfig(z_dim=16, class_embed_dim=16, channel_width=8, num_classes=10, output_dim=16,
+                               attention_layer_position=2, layers=((False, 16, 16), (True, 16, 8), (True, 8, 4)),
+                               n_stats=5)
+    mcfg = ModelConfig(model="biggan", img_size=16, biggan_label="3")
+    cpu = pipeline.build_pipeline(mcfg, FingerprintConfig(key_len=4, shift=12, n_pca_samples=500), device="cpu",
+                                  generator=torch.Generator().manual_seed(0), biggan_cfg=bcfg)
+    cpu.gen_params["attn"]["gamma"] = torch.tensor(0.7)
+    targets = pipeline.generate_fingerprinted(cpu, 2, torch.Generator().manual_seed(1))[0]
+    acfg = AttributionConfig(steps=1, n_starts=3, loss="perceptual")
+    alpha0 = torch.randn((2, 3, 12), generator=torch.Generator().manual_seed(2)) * cpu.basis.sigma_rest
+    out = {}
+    _cuda.reset_launches()
+    for dev in ("cpu", "cuda"):
+        basis = dataclasses.replace(cpu.basis, **{f.name: getattr(cpu.basis, f.name).to(dev)
+                                                  for f in dataclasses.fields(cpu.basis) if f.name != "sd_moved"})
+        feats = [f[:, None] for f in lpips.extract_features(tree_to(cpu.lpips_params, dev), targets.to(dev))]
+        _, per_elem = attribute.make_attribution_step(
+            tree_to(cpu.gen_params, dev), tree_to(cpu.lpips_params, dev), basis, [], mcfg, acfg, feats, None,
+            biggan_cfg=bcfg, class_onehot=cpu.class_onehot.to(dev), truncation=cpu.truncation)
+        alpha = alpha0.to(dev).requires_grad_(True)
+        key = torch.zeros((2, 3, 4), device=dev).requires_grad_(True)
+        per = per_elem(alpha, key)
+        out[dev] = [t.detach().cpu() for t in (per, *torch.autograd.grad(per.sum(), [alpha, key]))]
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    assert counts["conv3x3_relu"] > 0 and counts["vgg_slice1_fwd"] > 0 and counts["vgg_slice1_bwd"] > 0
+    assert counts["blur4"] == counts["upblur4"] == counts["upblur4_adj"] == 0
+    (pc, gac, gkc), (pg, gag, gkg) = out["cpu"], out["cuda"]
+    assert torch.isfinite(pg).all() and (pg - pc).abs().max().item() <= 1e-4 * pc.abs().max().item()
+    for gc, gg in ((gac, gag), (gkc, gkg)):
+        assert (gg - gc).abs().max().item() <= 1e-3 * gc.abs().max().item()
