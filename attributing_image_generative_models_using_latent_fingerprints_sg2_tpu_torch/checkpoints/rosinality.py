@@ -132,3 +132,50 @@ def params_from_jax(tree: Any, device="cpu", cfg: ModelConfig = None) -> Dict[st
     if cfg is not None:
         validate_generator(params, cfg)
     return params
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def generator_state_dict_from_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's generator tree -> rosinality ``g_ema`` names and layouts
+    (the inverse of :func:`generator_params_from_state_dict`): the trained
+    EMA generator's export, a ``.npz`` every ``--ckpt`` flag takes."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(params["style"]):
+        sd[f"style.{i + 1}.weight"] = _np(layer["weight"]).T
+        sd[f"style.{i + 1}.bias"] = _np(layer["bias"])
+    sd["input.input"] = np.transpose(_np(params["input"]), (0, 3, 1, 2))
+
+    def put_mod(prefix, p, flip=False):
+        w = _np(p["weight"])
+        if flip:
+            w = w[::-1, ::-1]
+        sd[f"{prefix}.conv.weight"] = np.transpose(w, (3, 2, 0, 1))[None]
+        sd[f"{prefix}.conv.modulation.weight"] = _np(p["mod"]["weight"]).T
+        sd[f"{prefix}.conv.modulation.bias"] = _np(p["mod"]["bias"])
+
+    def put_styled(prefix, p, flip=False):
+        put_mod(prefix, p, flip)
+        sd[f"{prefix}.noise.weight"] = _np(p["noise_weight"]).reshape(1)
+        sd[f"{prefix}.activate.bias"] = _np(p["act_bias"])
+
+    def put_rgb(prefix, p):
+        put_mod(prefix, p)
+        sd[f"{prefix}.bias"] = _np(p["bias"]).reshape(1, 3, 1, 1)
+
+    put_styled("conv1", params["conv1"])
+    put_rgb("to_rgb1", params["to_rgb1"])
+    for j, p in enumerate(params["convs"]):
+        put_styled(f"convs.{j}", p, flip=j % 2 == 0)  # the upsample layers are stored flipped
+    for j, p in enumerate(params["to_rgbs"]):
+        put_rgb(f"to_rgbs.{j}", p)
+    for i, nz in enumerate(params["noises"]):
+        sd[f"noises.noise_{i}"] = np.transpose(_np(nz), (0, 3, 1, 2))
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
+def discriminator_params_from_jax(tree: Any, device="cpu") -> Dict[str, Any]:
+    """The JAX package's discriminator pytree -> the port's (same layout)."""
+    return tree_to(tree, device)

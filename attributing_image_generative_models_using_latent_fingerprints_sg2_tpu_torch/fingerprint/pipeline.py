@@ -2,7 +2,8 @@
 
 Counterpart of the reference package's ``fingerprint/pipeline.py``:
 ``build_pipeline`` (weights -> PCA -> basis -> fixed synthesis noise -> LPIPS
--> attack), ``generate_fingerprinted``, ``synthesize`` and ``augment``, for
+-> attack), ``generate_fingerprinted``, ``synthesize``, ``synthesize_mixed``
+and ``augment``, for
 both model families: StyleGAN2 (W space, fixed noise maps) and BigGAN-deep
 (its truncated-noise latent, a one-hot class, truncation 0.4, no noise).
 Every random draw comes from an explicit ``torch.Generator`` (on the CPU, so
@@ -130,6 +131,21 @@ def synthesize(pipe: Pipeline, w: torch.Tensor) -> torch.Tensor:
         onehot = pipe.class_onehot.expand(w.shape[0], -1)
         return bg.generate(pipe.gen_params, w, onehot, pipe.truncation, pipe.biggan_cfg)
     return sg2.generate(pipe.gen_params, [w], pipe.mcfg, input_is_latent=True, noise=pipe.noise)
+
+
+@torch.no_grad()
+def synthesize_mixed(pipe: Pipeline, w_content: torch.Tensor, w_fingerprint: torch.Tensor,
+                     inject_index: Optional[int] = None) -> torch.Tensor:
+    """Style-mixing synthesis (StyleGAN2): the content style for the first
+    ``inject_index`` layers, the fingerprinted one for the rest.  The
+    reference's ``style_mixing`` switch (default off) sets inject_index =
+    n_latent - 1, so by default only the last layer takes the fingerprint."""
+    if pipe.mcfg.model != "sg2":
+        raise ValueError("style mixing is an sg2 feature")
+    if inject_index is None:
+        inject_index = pipe.mcfg.n_latent - 1
+    return sg2.generate(pipe.gen_params, [w_content, w_fingerprint], pipe.mcfg, input_is_latent=True,
+                        inject_index=inject_index, noise=pipe.noise)
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""StyleGAN2 generator (default path) in PyTorch, NHWC activations, HWIO weights.
+"""StyleGAN2 generator and discriminator in PyTorch, NHWC activations, HWIO weights.
 
 Counterpart of the reference package's ``models/stylegan2.py`` with the
 same parameter tree (nested dicts/lists of tensors, same names) and the same
@@ -12,7 +12,9 @@ algebra:
   is flipped back once, at use, for ``F.conv_transpose2d``;
 - the post-transpose blur (pad (1, 1), gain 4) and the ToRGB skip upsample
   run through ``ops.upfirdn2d``, i.e. the ``blur4`` / ``upblur4`` CUDA
-  kernels on a CUDA tensor.
+  kernels on a CUDA tensor;
+- the discriminator (training only) blurs before each stride-2 conv, through
+  the same ``blur4`` kernel at pads (2, 2) and (1, 1).
 
 Convolutions run on NCHW views of the NHWC tensors (``channels_last``
 memory), so no layout copies are made around them.
@@ -151,18 +153,54 @@ def synthesis(params: Params, latent: torch.Tensor,
     return skip
 
 
+def prepare_latent(params: Params, styles: Sequence[torch.Tensor], cfg: ModelConfig, *,
+                   input_is_latent: bool = False, inject_index: Optional[int] = None,
+                   truncation: float = 1.0,
+                   truncation_latent: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Styles -> the W+ latent [B, n_latent, D] (ref ``src/model.py:511-548``).
+
+    z inputs are mapped, then truncated toward ``truncation_latent`` when
+    ``truncation < 1``: truncation applies to z inputs only, the reference's
+    quirk.  One style [B, D] is broadcast to every layer; a [B, n_latent, D]
+    one is taken as it is (w+).  Two styles mix: the first for the layers
+    below ``inject_index`` (default n_latent - 2), the second above."""
+    nl = cfg.n_latent
+    if not input_is_latent:
+        styles = [mapping_network(params, s, cfg.lr_mlp) for s in styles]
+        if truncation < 1:
+            if truncation_latent is None:
+                raise ValueError("truncation < 1 needs truncation_latent")
+            styles = [truncation_latent + truncation * (s - truncation_latent) for s in styles]
+    if len(styles) < 2:
+        s = styles[0]
+        return s if s.ndim == 3 else s[:, None, :].expand(-1, nl, -1)
+    if inject_index is None:
+        inject_index = nl - 2
+    return torch.cat([styles[0][:, None, :].expand(-1, inject_index, -1),
+                      styles[1][:, None, :].expand(-1, nl - inject_index, -1)], dim=1)
+
+
 def generate(params: Params, styles: Sequence[torch.Tensor], cfg: ModelConfig, *,
              noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
-             input_is_latent: bool = False) -> torch.Tensor:
-    """One style for every layer: ``styles[0]`` is z (mapped here) or, with
-    ``input_is_latent``, w.  Style mixing and truncation are not ported."""
-    if len(styles) != 1:
-        raise NotImplementedError("style mixing is not yet ported")
-    s = styles[0]
-    if not input_is_latent:
-        s = mapping_network(params, s, cfg.lr_mlp)
-    latent = s[:, None, :].expand(-1, cfg.n_latent, -1)
+             input_is_latent: bool = False, inject_index: Optional[int] = None,
+             truncation: float = 1.0,
+             truncation_latent: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Image [B, H, W, 3] from z or w styles (:func:`prepare_latent`: mixing,
+    truncation, w+), with the given noise maps or none."""
+    latent = prepare_latent(params, styles, cfg, input_is_latent=input_is_latent,
+                            inject_index=inject_index, truncation=truncation,
+                            truncation_latent=truncation_latent)
     return synthesis(params, latent, noise, blur_kernel=cfg.blur_kernel)
+
+
+def mean_latent(params: Params, n: int, cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean w [1, D] over n z drawn from ``generator`` on the CPU, or over the
+    given ``z`` [n, D] (ref ``src/model.py:488-494``)."""
+    if z is None:
+        z = torch.randn((n, cfg.style_dim), generator=generator)
+    z = torch.as_tensor(z, dtype=torch.float32).to(params["input"].device)
+    return mapping_network(params, z, cfg.lr_mlp).mean(dim=0, keepdim=True)
 
 
 def make_noise(size: int, generator: torch.Generator, device) -> List[torch.Tensor]:
@@ -217,4 +255,98 @@ def init_generator_params(cfg: ModelConfig, generator: torch.Generator, device) 
     params["convs"] = convs
     params["to_rgbs"] = to_rgbs
     params["noises"] = [torch.randn(s, generator=g) for s in noise_shapes(cfg.img_size)]
+    return tree_to(params, device)
+
+
+# ---------------------------------------------------------------------------
+# Discriminator (ref ``src/model.py:575-699``)
+# ---------------------------------------------------------------------------
+
+
+def equal_conv2d(x: torch.Tensor, p: Params, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """Equalized-LR conv of NHWC ``x``; ``p['weight']`` is [kh, kw, I, O]."""
+    kh, kw, cin, _ = p["weight"].shape
+    w = (p["weight"] * (1.0 / math.sqrt(cin * kh * kw))).permute(3, 2, 0, 1)
+    out = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding).permute(0, 2, 3, 1)
+    if p.get("bias") is not None:
+        out = out + p["bias"]
+    return out
+
+
+def conv_layer(x: torch.Tensor, p: Params, *, downsample: bool = False, activate: bool = True,
+               blur_kernel: Sequence[int] = (1, 3, 3, 1)) -> torch.Tensor:
+    """[Blur, then a stride-2] equalized conv, then fused bias + LeakyReLU
+    (``act_bias``) or the plain ``bias`` (ref ``src/model.py:575-617``).  The
+    blur pads (2, 2) before a 3x3 conv and (1, 1) before a 1x1 one: the
+    ``blur4`` kernel on a CUDA tensor, with odd outputs."""
+    kh = p["weight"].shape[0]
+    if downsample:
+        pp = (len(blur_kernel) - 2) + (kh - 1)
+        x = upfirdn2d(x, make_kernel(blur_kernel), pad=((pp + 1) // 2, pp // 2))
+        out = equal_conv2d(x, {"weight": p["weight"]}, stride=2)
+    else:
+        out = equal_conv2d(x, {"weight": p["weight"]}, padding=kh // 2)
+    if activate:
+        return fused_leaky_relu(out, p.get("act_bias"))
+    if p.get("bias") is not None:
+        out = out + p["bias"]
+    return out
+
+
+def res_block(x: torch.Tensor, p: Params, blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
+    """Ref ``src/model.py:620-638``."""
+    out = conv_layer(x, p["conv1"], blur_kernel=blur_kernel)
+    out = conv_layer(out, p["conv2"], downsample=True, blur_kernel=blur_kernel)
+    skip = conv_layer(x, p["skip"], downsample=True, activate=False, blur_kernel=blur_kernel)
+    return (out + skip) / math.sqrt(2.0)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8) -> torch.Tensor:
+    """Append the group stddev feature map (ref ``src/model.py:684-692``):
+    sample i is grouped with i + k * (B / group), group = min(B, group_size)."""
+    b, h, w, c = x.shape
+    group = min(b, group_size)
+    var = x.reshape(group, -1, h, w, c).var(dim=0, unbiased=False)
+    std = torch.sqrt(var + eps).mean(dim=(1, 2, 3), keepdim=True)  # [B / group, 1, 1, 1]
+    return torch.cat([x, std.repeat(group, h, w, 1)], dim=-1)
+
+
+def discriminator_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits [B, 1] of NHWC images [B, S, S, 3] (ref ``src/model.py:681-699``).
+    The 4x4 map is flattened in H, W, C order, so ``final_linear0``'s [in, out]
+    weight is the JAX package's (the reference flattens C, H, W)."""
+    out = conv_layer(x, params["from_rgb"])
+    for rb in params["blocks"]:
+        out = res_block(out, rb, cfg.blur_kernel)
+    out = conv_layer(minibatch_stddev(out), params["final_conv"])
+    out = out.reshape(out.shape[0], -1)
+    out = equal_linear(out, params["final_linear0"], activation=True)
+    return equal_linear(out, params["final_linear1"])
+
+
+def init_discriminator_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
+    """Random discriminator weights (unit normal convs, zero biases), drawn on
+    the CPU from ``generator`` and moved to ``device``."""
+    g = generator
+    chans = channel_map(cfg.channel_multiplier, cfg.channel_max)
+    log_size = int(math.log2(cfg.img_size))
+
+    def conv_p(cin, cout, k, activate=True):
+        p = {"weight": torch.randn((k, k, cin, cout), generator=g)}
+        if activate:
+            p["act_bias"] = torch.zeros((cout,))
+        return p
+
+    params: Params = {"from_rgb": conv_p(3, chans[cfg.img_size], 1)}
+    blocks = []
+    in_ch = chans[cfg.img_size]
+    for i in range(log_size, 2, -1):
+        out_ch = chans[2 ** (i - 1)]
+        blocks.append({"conv1": conv_p(in_ch, in_ch, 3), "conv2": conv_p(in_ch, out_ch, 3),
+                       "skip": conv_p(in_ch, out_ch, 1, activate=False)})
+        in_ch = out_ch
+    params["blocks"] = blocks
+    params["final_conv"] = conv_p(in_ch + 1, chans[4], 3)
+    params["final_linear0"] = _init_equal_linear(g, chans[4] * 4 * 4, chans[4])
+    params["final_linear1"] = _init_equal_linear(g, chans[4], 1)
     return tree_to(params, device)

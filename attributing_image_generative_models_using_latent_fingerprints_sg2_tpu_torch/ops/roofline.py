@@ -1,6 +1,6 @@
-"""Operation and byte counts of the port's kernels, and the least time
-an H100 could take for them (the bound ``chip_smoke.py`` prints beside every
-measured time).
+"""Operation and byte counts of the port's kernels, the least time an H100
+could take for them (the bound ``chip_smoke.py`` prints beside every measured
+time), and the launches a solve step and a training step make.
 
 Counts come from shapes alone: useful floating-point operations of the
 function (a multiply-add is two), and the bytes it must move (each input read
@@ -17,6 +17,7 @@ Peaks are NVIDIA's published H100 SXM figures (dense, 700 W).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence, Tuple
 
 PEAK_F32 = 67e12        # FLOP/s, CUDA cores
@@ -33,6 +34,23 @@ CONV3X3_SHAPES = ((128, 128, 1), (256, 64, 2), (512, 32, 2), (512, 16, 3))
 SLICE1_H = 256
 LAUNCHES_PER_STEP = {"blur4": 12, "upblur4": 6, "upblur4_adj": 6, "conv3x3_relu": 16,
                      "vgg_slice1_fwd": 1, "vgg_slice1_bwd": 1}
+# The 256px discriminator: (C, input size r) of its res blocks, each with two
+# blurs on its input width: pads (2, 2) before the 3x3 stride-2 conv (out r + 1)
+# and (1, 1) before the 1x1 stride-2 skip (out r - 1).
+DISC_BLUR_SHAPES = ((128, 256), (256, 128), (512, 64), (512, 32), (512, 16), (512, 8))
+
+
+def train_launches(img_size: int, r1: bool) -> Dict[str, int]:
+    """Kernel launches of one training step (``training/gan.py``) at
+    ``img_size``, with n = log2(img_size) - 2 upsample blocks in G and as many
+    res blocks (2n blurs) in D.  blur4: G's forward twice (n each), D's forward
+    three times (real and fake for D, fake for G) and its backward three times
+    (2n each), G's backward (n); R1 adds the reals' input gradient and its
+    backward (2n each; the reals' forward is shared).  upblur4: G's forward
+    twice; upblur4_adj: G's backward."""
+    n = int(math.log2(img_size)) - 2
+    return {"blur4": 3 * n + 12 * n + (4 * n if r1 else 0), "upblur4": 2 * n, "upblur4_adj": n,
+            "conv3x3_relu": 0, "vgg_slice1_fwd": 0, "vgg_slice1_bwd": 0}
 
 
 def _counts(flops: float, nbytes: float, kind: str) -> Dict[str, object]:
@@ -86,6 +104,14 @@ def main_path(name: str, n: int) -> Sequence[Tuple[str, Dict[str, object]]]:
         return [(f"C{c}_H{h}", blur4(n, c, h, h)) for c, h in BLUR4_SHAPES]
     if name == "blur4_adj":  # the backward's launches of blur4: H -> H + 1
         return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2))) for c, h in BLUR4_SHAPES]
+    if name == "blur4_disc":  # the discriminator's blurs and (``_adj``) their adjoints
+        out = []
+        for c, r in DISC_BLUR_SHAPES:
+            out += [(f"D_C{c}_R{r}_p22", blur4(n, c, r + 1, r + 1, (2, 2))),
+                    (f"D_C{c}_R{r}_p11", blur4(n, c, r - 1, r - 1, (1, 1))),
+                    (f"D_C{c}_R{r}_p22_adj", blur4(n, c, r, r, (1, 1))),
+                    (f"D_C{c}_R{r}_p11_adj", blur4(n, c, r, r, (2, 2)))]
+        return out
     if name == "upblur4":  # fused with the ToRGB add, as the main path launches it
         return [(f"C3_H{h}", upblur4(n, 3, h, h, fused=True)) for h in UPBLUR4_SHAPES]
     if name == "upblur4_adj":

@@ -5,10 +5,11 @@ Counterpart of the reference's ``ops/upfirdn2d.py``.  Semantics (rosinality
 zeros), pad or crop by signed ``(pad0, pad1)`` per axis, convolve with the
 FIR kernel (correlate with its flip), keep every ``down``-th sample.
 
-Two cases of the synthesis network dispatch to the FIR kernels of
-``upfirdn2d_cuda`` (CUDA kernels on a CUDA tensor, their plain versions on a
-CPU one): a 4x4 separable symmetric kernel with up=down=1 and non-negative
-pads (``blur4``), and the same kernel with up=2, pad (2, 1) (``upblur4``;
+Two cases dispatch to the FIR kernels of ``upfirdn2d_cuda`` (CUDA kernels
+on a CUDA tensor, their plain versions on a CPU one): a 4x4 separable
+symmetric kernel with up=down=1 and pads in [0, 3] (``blur4``: the
+synthesis network's post-transpose blur, and the discriminator's blur before
+each stride-2 conv), and the same kernel with up=2, pad (2, 1) (``upblur4``;
 ``upsample2x_add`` is its fusion with the ToRGB skip's add).
 Everything else takes the general path below.
 """
@@ -106,7 +107,8 @@ def upfirdn2d(
         k1d = split_symmetric_4tap(kernel_np)
         if k1d is not None:
             pad_x0, pad_x1, pad_y0, pad_y1 = pads
-            if up == (1, 1) and min(pads) >= 0:
+            # pads in [0, 3]: the adjoint is blur4 again, at pads 3 - p
+            if up == (1, 1) and min(pads) >= 0 and max(pads) <= 3:
                 return upfirdn2d_cuda.blur4(x, k1d, k1d, (pad_y0, pad_y1), (pad_x0, pad_x1))
             if up == (2, 2) and pads == (2, 1, 2, 1):
                 return upfirdn2d_cuda.upblur4(x, k1d)
@@ -118,6 +120,13 @@ def upsample2x(x: torch.Tensor, kernel=(1, 3, 3, 1)) -> torch.Tensor:
     k = make_kernel(kernel) * 4.0
     p = k.shape[0] - 2
     return upfirdn2d(x, k, up=2, down=1, pad=((p + 1) // 2 + 1, p // 2))
+
+
+def downsample2x(x: torch.Tensor, kernel=(1, 3, 3, 1)) -> torch.Tensor:
+    """2x downsample (ref Downsample module): pad0=(p+1)//2, pad1=p//2, down=2."""
+    k = make_kernel(kernel)
+    p = k.shape[0] - 2
+    return upfirdn2d(x, k, down=2, pad=((p + 1) // 2, p // 2))
 
 
 def upsample2x_add(rgb: torch.Tensor, skip: torch.Tensor, kernel=(1, 3, 3, 1)) -> torch.Tensor:

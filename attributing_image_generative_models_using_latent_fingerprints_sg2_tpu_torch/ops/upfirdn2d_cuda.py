@@ -11,7 +11,10 @@ Counterpart of the reference's ``ops/upfirdn2d_pallas.py``:
                computes that adjoint outside Pallas).
 
 Each public function runs its plain PyTorch version on a CPU tensor and the
-CUDA kernel on a CUDA tensor (float32, else it raises).  Taps are the
+CUDA kernel on a CUDA tensor (float32, else it raises).  On a CUDA tensor
+every backward is itself an autograd Function over these three kernels, so
+the ops are differentiable to any order (training's R1 penalty takes a
+gradient of a gradient through the discriminator's blurs).  Taps are the
 per-axis kernel *including* its gain, as in the reference.
 """
 
@@ -130,6 +133,11 @@ def blur4_launch(x, fy, fx, pad_y, pad_x) -> torch.Tensor:
 
 
 class _Blur4(torch.autograd.Function):
+    """blur4 with taps ky, kx: one launch forward.  Its adjoint is blur4 again,
+    with the taps reversed and pads (3 - p0, 3 - p1), through this Function, so
+    the adjoint's own backward is the forward: differentiable to any order
+    (the R1 penalty of training differentiates through it twice)."""
+
     @staticmethod
     def forward(ctx, x, ky, kx, pad_y, pad_x):
         ctx.taps = (ky, kx, pad_y, pad_x)
@@ -138,9 +146,7 @@ class _Blur4(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ky, kx, pad_y, pad_x = ctx.taps
-        dx = blur4_launch(
-            g.contiguous(), ky, kx, (3 - pad_y[0], 3 - pad_y[1]), (3 - pad_x[0], 3 - pad_x[1])
-        )
+        dx = _Blur4.apply(g, ky[::-1], kx[::-1], (3 - pad_y[0], 3 - pad_y[1]), (3 - pad_x[0], 3 - pad_x[1]))
         return dx, None, None, None, None
 
 
@@ -169,7 +175,8 @@ def upblur4_adjoint_launch(g, k) -> torch.Tensor:
 
 
 class _Upblur4(torch.autograd.Function):
-    """upblur4(x) + rgb (rgb may be None): one launch forward, one backward."""
+    """upblur4(x) + rgb (rgb may be None): one launch forward, one backward
+    (through :class:`_Upblur4Adj`, so it is differentiable again)."""
 
     @staticmethod
     def forward(ctx, x, rgb, k):
@@ -178,8 +185,22 @@ class _Upblur4(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        dx = upblur4_adjoint_launch(g.contiguous(), ctx.k) if ctx.needs_input_grad[0] else None
+        dx = _Upblur4Adj.apply(g, ctx.k) if ctx.needs_input_grad[0] else None
         return dx, (g if ctx.needs_input_grad[1] else None), None
+
+
+class _Upblur4Adj(torch.autograd.Function):
+    """upblur4's adjoint: one launch of ``upblur4_adj``; its backward is
+    upblur4 without the add."""
+
+    @staticmethod
+    def forward(ctx, g, k):
+        ctx.k = k
+        return upblur4_adjoint_launch(g.contiguous(), k)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Upblur4.apply(gg, None, ctx.k), None
 
 
 def blur4(x: torch.Tensor, ky, kx, pad_y, pad_x) -> torch.Tensor:

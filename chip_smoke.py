@@ -27,6 +27,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                taps, H -> H + 1: the backward's six launches a step).  blur4
                (both), conv3x3_relu (forward and dx), the vgg_slice1 forward
                and its backward are held against plain again at both batches.
+               blur4 also at the discriminator's shapes (``D_``: C 128..512 at
+               256..8 px, pads (2, 2) and (1, 1), odd outputs): forward and dx
+               at batch 2, launch-only forward and adjoint at batch 16 (summed
+               under ``disc_`` keys).  Then the second derivative through the
+               FIR kernels (R1's gradient of a gradient) against the plain
+               versions on the CPU.
 3. recovery -- planted keys recovered through the kernels on a tiny
                generator (32px, mse loss, 300 steps, 4 restarts, 3 samples).
 4. generate -- ``cli.generate`` at full width (256px, style_dim 512, n_mlp 8,
@@ -108,9 +114,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                its model and every held-out target is rejected at the threshold
                ``cli.model_attribute.calibrate`` sets from in-distribution solves
                (450 mse steps, 4 restarts, as the reference package's test).
+14. train   -- StyleGAN2-256 training at full width (``training/gan.py``,
+               random weights from a seed, batch 16, lazy R1 every 4 steps): the
+               launches of a step with R1 and of one without against
+               ``ops/roofline.py::train_launches``, 8 timed steps (CUDA events),
+               peak memory, finite losses on the R1 schedule, and the device
+               time by kernel over 4 steps (``torch.profiler``).
+15. train_tiny -- ``cli.train`` at its defaults (64px, channel_max 128, batch
+               16), one process a run under ``cudnn.deterministic``: 40 steps
+               with a snapshot resumed to 80 equal (both exports) to 80 steps
+               uninterrupted, one metrics row a step; then ``cli.attribute
+               --ckpt`` on the trained generator, its bit accuracy printed.
 
 Then it prints the card's name and power limit, one JSON line describing
-each kernel, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+each kernel (its launches on every path above: ``launches`` is phase 5's,
+``launches_training`` phase 14's timed steps), and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero at once.
 """
 
@@ -222,7 +240,7 @@ def conv1_sign_keep(torch, vgg_cuda, x, w1, b1):
     return ~near.expand(-1, -1, -1, 3)
 
 
-def phase_kernels(torch, mods):
+def phase_kernels(torch, mods, disc_shapes):
     up_cuda, vgg_cuda, slice_cuda, upf = mods
     g = torch.Generator().manual_seed(0)
     dev = "cuda"
@@ -237,6 +255,14 @@ def phase_kernels(torch, mods):
                       lambda v: up_cuda.blur4(v, k1, k1, (1, 1), (1, 1)),
                       lambda v: up_cuda.blur4_plain(v, k1, k1, (1, 1), (1, 1)),
                       rnd(2, h2 + 1, h2 + 1, c), rnd(2, h2, h2, c)))
+    k0 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)))  # the discriminator's blur: no gain
+    for c, r in disc_shapes:
+        for p in (2, 1):  # before the 3x3 stride-2 conv (out r + 1), before the 1x1 skip (out r - 1)
+            o = r + 2 * p - 3
+            cases.append(("blur4", f"D_C{c}_R{r}_p{p}{p}",
+                          lambda v, p=p: up_cuda.blur4(v, k0, k0, (p, p), (p, p)),
+                          lambda v, p=p: up_cuda.blur4_plain(v, k0, k0, (p, p), (p, p)),
+                          rnd(2, r, r, c), rnd(2, o, o, c)))
     for h in (4, 8, 16, 32, 64, 128):
         # the ToRGB skip as the main path runs it: rgb + upblur4(skip) in one launch,
         # dx through the adjoint kernel
@@ -273,6 +299,9 @@ def phase_kernels(torch, mods):
               "left_out": errs["left_out"], **t})
         agg = per_kernel.setdefault(name, {"err_fwd": 0.0, "err_dx": 0.0, "ms_fwd": 0.0,
                                            "plain_ms_fwd": 0.0, "ms_bwd": 0.0, "plain_ms_bwd": 0.0})
+        if shape.startswith("D_"):  # errors held like the rest; times apart from the main path's sums
+            agg["err_fwd"], agg["err_dx"] = max(agg["err_fwd"], errs["fwd"]), max(agg["err_dx"], errs["dx"])
+            continue
         agg["err_fwd"] = max(agg["err_fwd"], errs["fwd"])
         agg["err_dx"] = max(agg["err_dx"], errs["dx"])
         for key in ("ms_fwd", "plain_ms_fwd", "ms_bwd", "plain_ms_bwd"):
@@ -318,6 +347,24 @@ def launch_cases(torch, mods, n, rnd):
         cases.append(("blur4", f"C{c}_H{h}_adj", kf, pf,
                       lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=2, groups=c),
                       roof.blur4(n, c, h + 1, h + 1, (2, 2)), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+    if n == 16:
+        # the discriminator's blurs at full width (batch 16) and their adjoints: pads p on
+        # [n, r, r, c] and, for the adjoint, pads 3 - p on the forward's output
+        k0 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)))
+        k0t = torch.tensor(k0, device="cuda")
+        counts = dict(roof.main_path("blur4_disc", n))
+        for c, r in roof.DISC_BLUR_SHAPES:
+            for p, adj in ((2, False), (1, False), (2, True), (1, True)):
+                q, size = (3 - p, r + 2 * p - 3) if adj else (p, r)
+                label = f"D_C{c}_R{r}_p{p}{p}" + ("_adj" if adj else "")
+                x = rnd(n, size, size, c)
+                taps = k0 if adj else k0[::-1]  # the launch takes correlation taps; the adjoint's are unflipped
+                wl = (torch.outer(k0t, k0t) if adj else torch.outer(k0t, k0t).flip(0, 1)).expand(c, 1, 4, 4).contiguous()
+                kf = lambda x=x, t=taps, q=q: up_cuda.blur4_launch(x, t, t, (q, q), (q, q))
+                pf = lambda x=x, t=taps, q=q: up_cuda.blur4_plain(x, t[::-1], t[::-1], (q, q), (q, q))
+                cases.append(("blur4", label, kf, pf,
+                              lambda x=x, wl=wl, c=c, q=q: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=q, groups=c),
+                              counts[label], lambda kf=kf, pf=pf: (kf(), pf(), None)))
     wl3 = torch.outer(kt, kt).expand(3, 1, 4, 4).contiguous()
     for h in roof.UPBLUR4_SHAPES:
         x, rgb = rnd(n, h, h, 3), rnd(n, 2 * h, 2 * h, 3)
@@ -423,10 +470,10 @@ def phase_launch_times(torch, mods, per_kernel):
                 agg["err"] = max(agg["err"], line.get("max_abs_err", 0.0))
                 if n == 16:
                     adjoint = shape.endswith(("_dx", "_adj"))
+                    prefix = ("disc_" if shape.startswith("D_") else "") + ("adjoint_" if adjoint else "")
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                        k = "adjoint_" + key if adjoint else key
-                        agg[k] = agg.get(k, 0.0) + line[key]
-                    if not adjoint:
+                        agg[prefix + key] = agg.get(prefix + key, 0.0) + line[key]
+                    if not prefix:
                         by = agg["bound_by"]
                         by[line["bound_by"]] = by.get(line["bound_by"], 0.0) + line["bound_ms"]
 
@@ -1180,6 +1227,156 @@ def phase_model_attribution(torch, port, gpu):
     return counts
 
 
+def second_derivative(torch, fn, x, c):
+    """d/dx sum(g^2) with g = d/dx sum(tanh(fn(x)) * c): a gradient of a
+    gradient through ``fn``, as the R1 penalty takes one through D's blurs."""
+    x = x.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad((torch.tanh(fn(x)) * c).sum(), x, create_graph=True)
+    return torch.autograd.grad(g.square().sum(), x)[0]
+
+
+def phase_second_derivative(torch, mods, disc_shapes):
+    """The second derivative through the FIR kernels' autograd Functions on the
+    card (forward, adjoint and the adjoint's backward all kernels) against the
+    plain versions differentiated twice on the CPU, at the discriminator's
+    widths (batch 2; the widest and the narrowest block, both pads) and at the
+    largest ToRGB skip shape; within 1e-4 * max(1, max|CPU|)."""
+    up_cuda, upf = mods[0], mods[3]
+    k0 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)))
+    k1 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)) * 4.0)
+    g = torch.Generator().manual_seed(3)
+    cases = []
+    for c, r in (disc_shapes[0], disc_shapes[-1]):
+        for p in (2, 1):
+            o = r + 2 * p - 3
+            cases.append((f"blur4 D_C{c}_R{r}_p{p}{p}", lambda v, p=p: up_cuda.blur4(v, k0, k0, (p, p), (p, p)),
+                          torch.randn((2, r, r, c), generator=g), torch.randn((2, o, o, c), generator=g)))
+    rgb = torch.randn((2, 256, 256, 3), generator=g)
+    cases.append(("upblur4 C3_H128", lambda v: up_cuda.upblur4_add(rgb.to(v.device), v, k1),
+                  torch.randn((2, 128, 128, 3), generator=g), torch.randn((2, 256, 256, 3), generator=g)))
+    for label, fn, x, c in cases:
+        want = second_derivative(torch, fn, x, c)
+        got = second_derivative(torch, fn, x.cuda(), c.cuda()).cpu()
+        err, scale = (got - want).abs().max().item(), max(1.0, want.abs().max().item())
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite second derivative")
+        check(err <= TOL * scale, f"{label}: second derivative error {err:.3e} > {TOL} * {scale:.3e}")
+        emit({"phase": "second_derivative", "case": label, "batch": 2, "max_abs_err": err, "scale": scale})
+
+
+def phase_train(torch, port, gpu):
+    """StyleGAN2-256 at full width (style_dim 512, n_mlp 8, channel_max 512,
+    multiplier 2) with its discriminator, random weights from a seed, batch 16,
+    lazy R1 every 4 steps: 6 warm-up steps (their launches per step, with and
+    without R1, against ``ops/roofline.py::train_launches``), then 8 timed steps
+    (CUDA events; 2 with R1), peak memory, finite losses, and one
+    ``torch.profiler`` pass over 4 steps (1 with R1)."""
+    C, gan, cuda_mod, roof = port["config"], port["gan"], port["_cuda"], port["roof"]
+    mcfg = C.ModelConfig(img_size=256)
+    tcfg = gan.TrainConfig(d_reg_every=4)
+    check(tcfg.batch == 16, f"TrainConfig's default batch is {tcfg.batch}")
+    seed = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = gan.init_train_state(mcfg, tcfg, torch.Generator().manual_seed(seed), "cuda")
+    gan.run_steps(state, seed, 4, mcfg, tcfg)  # steps 0-3
+    per_step = {}
+    for label in ("r1", "no_r1"):  # steps 4 and 5
+        cuda_mod.reset_launches()
+        gan.run_steps(state, seed, 1, mcfg, tcfg)
+        per_step[label] = cuda_mod.launch_counts()
+        want = roof.train_launches(256, label == "r1")
+        check(per_step[label] == want, f"training step ({label}) launched {per_step[label]}, expected {want}")
+    cuda_mod.reset_launches()
+    ms = {"r1": [], "no_r1": []}
+    rows = []
+    for _ in range(8):  # steps 6-13, R1 at 8 and 12
+        label = "r1" if state.step % tcfg.d_reg_every == 0 else "no_r1"
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        m = gan.run_steps(state, seed, 1, mcfg, tcfg)
+        b.record()
+        b.synchronize()
+        ms[label].append(a.elapsed_time(b))
+        rows.append({k: float(v[0]) for k, v in m.items()})
+    counts = cuda_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 2 * v + 6 * roof.train_launches(256, False)[k] for k, v in roof.train_launches(256, True).items()}
+    check(counts == want, f"8 timed training steps launched {counts}, expected {want}")
+    check(all(v == v and abs(v) < float("inf") for r in rows for v in r.values()), f"non-finite losses {rows}")
+    check([r["r1"] > 0 for r in rows] == [False, False, True, False, False, False, True, False], "R1 schedule")
+    prof = device_kernel_ms(torch, lambda: gan.run_steps(state, seed, 4, mcfg, tcfg), calls=1)
+    busy = sum(prof.values()) / 4
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:15]
+    groups = {}  # device ms a step: the FIR kernels by name, then cuDNN / cuBLAS, PyTorch's own, the rest
+    for k, v in prof.items():
+        g = next((n for n in ("upblur4_adj", "upblur4", "blur4") if n in k), None)
+        if g is None:
+            g = ("cudnn_cublas" if any(w in k for w in ("cudnn", "xmma", "convolve", "grad_engine", "gemm")) else
+                 "pytorch_elementwise_reduce" if "at::native" in k else "other")
+        groups[g] = groups.get(g, 0.0) + v / 4
+    emit({"phase": "train", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512, "batch": 16,
+          "d_reg_every": 4, "ms_step_r1": ms["r1"], "ms_step_no_r1": ms["no_r1"],
+          "median_ms_step_r1": statistics.median(ms["r1"]), "median_ms_step_no_r1": statistics.median(ms["no_r1"]),
+          "images_per_s_no_r1": 16e3 / statistics.median(ms["no_r1"]), "max_memory_allocated_bytes": peak,
+          "losses": rows, "launches_per_step": per_step, "launches_timed_steps": counts,
+          "profile_steps": 4, "profile_r1_steps": 1, "device_busy_ms_per_step": busy,
+          "device_ms_per_step_by_group": groups,
+          "top_device_ms_per_4_steps": {k: v for k, v in top}, "gpu": gpu})
+    return counts
+
+
+def phase_train_tiny(torch, port, gpu):
+    """The self-train loop through ``cli.train`` at the CLI's defaults (64px,
+    channel_max 128, batch 16), each run its own process under
+    ``cudnn.deterministic``: 40 steps with a snapshot, the same run resumed to
+    80, and 80 uninterrupted; the two exports (EMA generator and discriminator)
+    must be equal and the metrics one row a step.  Then ``cli.attribute --ckpt``
+    on the trained generator (2 samples x 4 restarts, 100 mse steps): its bit
+    accuracy is printed, not held to a figure."""
+    import numpy as np
+
+    # the snapshot and exports (~0.2 GB) go to a git-ignored work directory, not under OUT
+    work = os.path.join(ROOT, "_chip_work", "train_tiny")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    snap, metrics = os.path.join(work, "snap.npz"), os.path.join(work, "metrics.jsonl")
+    part, whole = os.path.join(work, "resumed.npz"), os.path.join(work, "whole.npz")
+    code = ("import sys, torch\n"
+            "torch.backends.cudnn.deterministic = True\n"
+            "torch.backends.cudnn.benchmark = False\n"
+            f"from {PORT}.cli.train import main\n"
+            "sys.exit(main(sys.argv[1:]))\n")
+    base = ["--device", "cuda", "--seed", "0", "--chunk", "20"]
+    seconds = []
+    for args in (["--steps", "40", "--snapshot", snap, "--metrics_out", metrics, "--out", part],
+                 ["--steps", "80", "--snapshot", snap, "--resume", "--metrics_out", metrics, "--out", part],
+                 ["--steps", "80", "--out", whole]):
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-c", code, *base, *args], cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        seconds.append(time.time() - t0)
+        print(r.stdout, end="", flush=True)
+        check(r.returncode == 0, f"cli.train {args} returned {r.returncode}: {r.stderr[-2000:]}")
+    for suffix in ("", ".disc.npz"):
+        with np.load(part + suffix) as a, np.load(whole + suffix) as b:
+            check(sorted(a.files) == sorted(b.files), f"export{suffix}: tensor names differ")
+            diff = [k for k in a.files if not np.array_equal(a[k], b[k])]
+            check(not diff, f"resumed export{suffix} differs from the uninterrupted run in {diff[:5]}")
+    rows = [json.loads(line) for line in open(metrics)]
+    check([r["step"] for r in rows] == list(range(1, 81)), "metrics rows are not one a step across --resume")
+    check(all(abs(r[k]) < float("inf") for r in rows for k in ("d_loss", "g_loss", "r1")), "non-finite metrics")
+    t0 = time.time()
+    res = port["cli_attribute"].run(["--device", "cuda", "--ckpt", whole, "--img_size", "64", "--channel_max", "128",
+                                     "--loss", "mse", "--sample_size", "2", "--n", "4", "--steps", "100",
+                                     "--save_dir", os.path.join(work, "attribute")])
+    check(all(v == v and abs(v) < float("inf") for v in res.losses), f"non-finite losses {res.losses}")
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "train_tiny", "img_size": 64, "channel_max": 128, "batch": 16, "steps": 80,
+          "resume_equal": True, "process_seconds": seconds, "d_loss_last": rows[-1]["d_loss"],
+          "g_loss_last": rows[-1]["g_loss"], "attribute_bit_acc": res.bit_accs, "attribute_losses": res.losses,
+          "attribute_seconds": time.time() - t0, "gpu": gpu})
+
+
 def main() -> int:
     import torch
 
@@ -1201,7 +1398,8 @@ def main() -> int:
             ("server", "serving.server"),
             ("cli_generate", "cli.generate"), ("cli_attribute", "cli.attribute"), ("cli_serve", "cli.serve"),
             ("cli_model_attribute", "cli.model_attribute"), ("model_attribution", "fingerprint.model_attribution"),
-            ("biggan", "models.biggan"), ("lpips", "losses.lpips"))}
+            ("biggan", "models.biggan"), ("lpips", "losses.lpips"), ("gan", "training.gan"),
+            ("cli_train", "cli.train"))}
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -1221,7 +1419,8 @@ def main() -> int:
           "library": os.path.relpath(str(lib), ROOT), "build_seconds": time.time() - t0})
 
     mods = (port["up_cuda"], port["vgg_cuda"], port["slice_cuda"], port["upf"])
-    per_kernel = phase_kernels(torch, mods)
+    per_kernel = phase_kernels(torch, mods, port["roof"].DISC_BLUR_SHAPES)
+    phase_second_derivative(torch, mods, port["roof"].DISC_BLUR_SHAPES)
     phase_launch_times(torch, mods + (port["roof"],), per_kernel)
     phase_recovery(torch, port)
     phase_generate(torch, port)
@@ -1244,6 +1443,12 @@ def main() -> int:
     t0 = time.time()
     model_attribution_counts = phase_model_attribution(torch, port, gpu)
     emit({"phase": "model_attribution_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    training_counts = phase_train(torch, port, gpu)
+    emit({"phase": "train_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    phase_train_tiny(torch, port, gpu)
+    emit({"phase": "train_tiny_done", "seconds": time.time() - t0})
 
     # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
     through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
@@ -1262,13 +1467,15 @@ def main() -> int:
             "launches_served_attribution": serve_counts[name],
             "launches_biggan_attribution": biggan_counts[name],
             "launches_model_attribution": model_attribution_counts[name],
+            "launches_training": training_counts[name],
             "max_abs_err": max(launch["err"], agg[which] if which else max(agg["err_fwd"], agg["err_dx"])),
             "ms": launch["ms"], "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
             "bound_by": max(launch["bound_by"], key=launch["bound_by"].get),
             "library_ms": launch["library_ms"], "batch": 16,
             "launches_per_step": per_step[name],
-            # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`), summed likewise
-            **{k: v for k, v in launch.items() if k.startswith("adjoint_")},
+            # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`) and blur4 at
+            # the discriminator's shapes (`disc_`, forward and `disc_adjoint_`), summed likewise
+            **{k: v for k, v in launch.items() if k.startswith(("adjoint_", "disc_"))},
         })
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -86,7 +86,7 @@ def _basis_from_jax(jb):
     })
 
 
-def test_perceptual_solve_matches_jax_loss_for_loss(direct_cpu_convs):
+def test_perceptual_solve_matches_jax_loss_for_loss(direct_cpu_convs, mse_problem):
     """Same generator, LPIPS, basis, noise, targets and LHS starts; 10
     perceptual steps of the JAX solver.  At every step, from the JAX
     solver's state: the port's loss of every restart agrees to 1e-4
@@ -100,14 +100,12 @@ def test_perceptual_solve_matches_jax_loss_for_loss(direct_cpu_convs):
     than in the JAX package and in a float64 evaluation.  Steps are compared
     from the same state because free-running float32 solves drift apart
     through Adam (its first moment cancels when a gradient changes sign)."""
-    mcfg_j, steps = JModelConfig(**MKW), 10
-    # weights made by jitted initializers: op-by-op JAX would compile each op
-    jp = jpl.build_pipeline(
-        jax.random.PRNGKey(0), mcfg_j, JFingerprintConfig(**FKW),
-        gen_params=jax.jit(jsg2.init_generator_params, static_argnums=1)(jax.random.PRNGKey(5), mcfg_j),
-        lpips_params=jax.jit(jlp.init_lpips_params)(jax.random.PRNGKey(6)),
-    )
-    imgs, _, _, _, _ = jpl.generate_fingerprinted(jp, jax.random.PRNGKey(1), 2)
+    mcfg_j, steps = mse_problem["mcfg_j"], 10
+    # the shared problem's pipeline (the same keys and generator weights; LPIPS
+    # draws no key of its own when given) with LPIPS weights from a jitted
+    # initializer, and its targets: generate_fingerprinted(jp, PRNGKey(1), 2)
+    jp = dataclasses.replace(mse_problem["jp"], lpips_params=jax.jit(jlp.init_lpips_params)(jax.random.PRNGKey(6)))
+    imgs = mse_problem["imgs"]
     a0 = lhs_alpha_init_batch(jax.random.PRNGKey(2), 2, 3, jp.basis.sigma_rest)
     acfg_j = JAttributionConfig(steps=steps, n_starts=3, loss="perceptual")
     opt = jattr._make_optimizer(acfg_j)
@@ -255,6 +253,11 @@ def test_port_never_imports_jax():
         "    '--n_mlp', '1', '--channel_max', '16', '--key_len', '4', '--shift', '8', '--loss', 'mse', '--n', '2',\n"
         "    '--steps', '1', '--sample_size', '2'])\n"
         "assert len(rec['decisions']) == 2\n"
+        f"from {PORT}.cli import train\n"
+        f"from {PORT}.training import folder, snapshot\n"
+        f"from {PORT}.checkpoints import flat\n"
+        "assert train.main(['--device', 'cpu', '--img_size', '8', '--style_dim', '16', '--n_mlp', '1',\n"
+        "    '--channel_max', '16', '--batch', '2', '--steps', '1', '--out', '']) == 0\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') or k == 'jaxlib'\n"
         "       or k.startswith('attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.')\n"
         "       or k == 'attributing_image_generative_models_using_latent_fingerprints_sg2_tpu']\n"

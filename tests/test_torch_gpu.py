@@ -325,3 +325,100 @@ def test_biggan_solve_step_matches_the_cpu(cuda):
     assert torch.isfinite(pg).all() and (pg - pc).abs().max().item() <= 1e-4 * pc.abs().max().item()
     for gc, gg in ((gac, gag), (gkc, gkg)):
         assert (gg - gc).abs().max().item() <= 1e-3 * gc.abs().max().item()
+
+
+K0 = split_symmetric_4tap(make_kernel((1, 3, 3, 1)))  # the discriminator's blur: no gain
+# (C, input size, pads): the discriminator's blurs, (2, 2) before a 3x3 stride-2
+# conv (output r + 1) and (1, 1) before the 1x1 skip (output r - 1), at the
+# widths of the full-width model's blocks and at C % 4 != 0
+DISC_BLUR_CASES = [(128, 64, (2, 2)), (128, 64, (1, 1)), (256, 32, (2, 2)), (512, 8, (2, 2)), (512, 8, (1, 1)),
+                   (6, 16, (2, 2)), (6, 16, (1, 1))]
+
+
+@pytest.mark.parametrize("c,r,pads", DISC_BLUR_CASES)
+def test_blur4_kernel_at_the_discriminators_pads(cuda, c, r, pads):
+    x = _rand(2, r, r, c).to(cuda)
+    o = r + sum(pads) - 3
+    cot = _rand(2, o, o, c, seed=1).to(cuda)
+    _check(lambda v: upfirdn2d_cuda.blur4(v, K0, K0, pads, pads),
+           lambda v: upfirdn2d_cuda.blur4_plain(v, K0, K0, pads, pads), x, cot)
+
+
+def _second_derivative(fn, x, c):
+    """d/dx sum(g^2) with g = d/dx sum(tanh(fn(x)) * c): a gradient of a
+    gradient through ``fn``, as the R1 penalty takes one through the blurs."""
+    x = x.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad((torch.tanh(fn(x)) * c).sum(), x, create_graph=True)
+    return torch.autograd.grad(g.square().sum(), x)[0]
+
+
+@pytest.mark.parametrize("op", ["blur4_p22", "blur4_p11", "blur4_skew", "upblur4", "upblur4_add"])
+def test_second_derivative_on_the_card_matches_the_cpu(cuda, op):
+    """The kernels' autograd Functions differentiated twice on the card against
+    the plain versions differentiated twice on the CPU; every launch of the
+    card's graph (forward, adjoint, the adjoint's backward) is a kernel."""
+    skew = split_symmetric_4tap(make_kernel((1, 2, 3, 4)) * 4.0)
+    if op.startswith("blur4"):
+        pads = {"blur4_p22": (2, 2), "blur4_p11": (1, 1), "blur4_skew": (1, 2)}[op]
+        taps = skew if op == "blur4_skew" else K0
+        x = _rand(2, 17, 17, 128)
+        fn = lambda v: upfirdn2d_cuda.blur4(v, taps, taps[::-1], pads, pads[::-1])  # noqa: E731
+        out = 17 + sum(pads) - 3
+        c = _rand(2, out, out, 128, seed=1)
+    else:
+        x = _rand(2, 9, 9, 3)
+        rgb = _rand(2, 18, 18, 3, seed=2)
+        fn = ((lambda v: upfirdn2d_cuda.upblur4(v, skew)) if op == "upblur4"
+              else (lambda v: upfirdn2d_cuda.upblur4_add(rgb.to(v.device), v, skew)))
+        c = _rand(2, 18, 18, 3, seed=1)
+    want = _second_derivative(fn, x, c)
+    _cuda.reset_launches()
+    got = _second_derivative(fn, x.to(cuda), c.to(cuda))
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    # forward, its adjoint, the adjoint's backward (the forward again), the forward's adjoint again
+    want_launches = {"blur4": 4} if op.startswith("blur4") else {"upblur4": 2, "upblur4_adj": 2}
+    assert {k: v for k, v in counts.items() if v} == want_launches
+    _close(got.cpu(), want)
+
+
+def test_train_step_matches_the_cpu(cuda):
+    """Two training steps of the 16px configuration (step 0 with R1) on the card
+    against the same steps on the CPU from one state and one draw: losses to
+    1e-4 relative, both networks' gradients (Adam's first moment, b1 = 0) to
+    1e-3 of their scale (cuDNN and the kernels sum in other orders through
+    three discriminator passes and R1's second derivative)."""
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.config import ModelConfig
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.training import gan
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.utils.tree import (
+        tree_leaves,
+        tree_map,
+    )
+
+    mcfg = ModelConfig(img_size=16, style_dim=32, n_mlp=2, channel_max=32)
+    tcfg = gan.TrainConfig(batch=4, d_reg_every=2)
+    cpu = gan.init_train_state(mcfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    card = dataclasses.replace(cpu, **{f: tree_map(lambda t: t.to(cuda), getattr(cpu, f))
+                                       for f in ("g_params", "d_params", "g_ema")},
+                               g_opt=gan.init_adam(tree_map(lambda t: t.to(cuda), cpu.g_params)),
+                               d_opt=gan.init_adam(tree_map(lambda t: t.to(cuda), cpu.d_params)))
+    mkldnn = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False  # PyTorch's direct CPU convs: the closer float32 reference
+    try:
+        for step in range(2):
+            draws = gan.draw_step(3, step, mcfg, tcfg, "cpu")
+            _cuda.reset_launches()
+            card, mk = gan.train_step(card, {"real": draws["real"].to(cuda), "d": draws["d"].to(cuda),
+                                             "g": draws["g"].to(cuda)}, mcfg, tcfg)
+            torch.cuda.synchronize()
+            counts = _cuda.launch_counts()
+            cpu, mc = gan.train_step(cpu, draws, mcfg, tcfg)
+            assert counts["blur4"] > 0 and counts["upblur4"] > 0 and counts["upblur4_adj"] > 0
+            for k in ("d_loss", "r1", "g_loss"):
+                assert abs(mk[k].item() - mc[k].item()) <= 1e-4 * max(abs(mc[k].item()), 1e-6), k
+            assert (mc["r1"].item() > 0) == (step == 0)
+            for opt in ("g_opt", "d_opt"):
+                for a, b in zip(tree_leaves(getattr(card, opt)["mu"]), tree_leaves(getattr(cpu, opt)["mu"])):
+                    assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(b.abs().max().item(), 1e-12)
+    finally:
+        torch.backends.mkldnn.enabled = mkldnn
