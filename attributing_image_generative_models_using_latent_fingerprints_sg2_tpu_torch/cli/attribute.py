@@ -15,6 +15,10 @@ Run:
         --loss perceptual --sample_size 2 --n 4 --steps 20 \
         --augmentation Jpeg --attack_aware --init encoder --encoder_steps 100 \
         --prune_starts 2 --polish_sweeps 1 --chunk_samples 1
+
+``--dtype bfloat16`` runs synthesis and LPIPS in bfloat16 (the bf16 kernels)
+with the optimizer state and the loss in float32; a resumed run takes the
+dtype saved in its run directory.
 """
 
 from __future__ import annotations
@@ -116,9 +120,6 @@ def run(argv=None) -> AttributeRun:
         )
         state = AttributionRunState(seed=cfg.run.seed, config=cfg.to_dict())
     save_init_scheme(run_dir, scheme)
-    saved_dtype = (state.config or {}).get("run", {}).get("dtype", "float32")
-    if saved_dtype != "float32":  # a run directory written by the reference package
-        raise SystemExit(f"--dtype {saved_dtype}: not yet ported to the PyTorch package")
     device = resolve_device(cfg.run.device)
     print(f"[attribute] run dir: {run_dir}")
 
@@ -187,7 +188,7 @@ def run(argv=None) -> AttributeRun:
         res = attr.attribute_chunked(
             pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, targets[c0:c1],
             mcfg=cfg.model, acfg=acfg, generator=fold_in(opt_seed, c0),
-            chunk_starts=args.chunk_starts,
+            chunk_starts=args.chunk_starts, dtype=cfg.run.dtype,
             attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
             alpha_init=None if alpha_init_all is None else alpha_init_all[c0:c1],
             key_init=None if key_init_all is None else key_init_all[c0:c1], **pl.solver_kwargs(pipe))

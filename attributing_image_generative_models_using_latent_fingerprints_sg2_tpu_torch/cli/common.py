@@ -1,8 +1,7 @@
 """Shared CLI flag surface: the reference CLI's flag names for everything
-the port carries, plus ``--device``.
-
-Flags of features that are not ported yet are still parsed, so that a
-non-default value is refused with a clear error instead of being ignored.
+the port carries, plus ``--device``.  A combination the reference cannot run
+either (``--init encoder`` with ``--model biggan``) is refused with a clear
+error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -78,14 +77,13 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="after --prune_frac of the steps keep this many best restarts per sample (0 = off)")
     p.add_argument("--prune_frac", type=float, default=0.25,
                    help="fraction of steps all restarts run before pruning")
-    # parsed only to be refused when set (not yet ported)
-    p.add_argument("--dtype", type=str, default="float32", help="float32 (bfloat16 not yet ported)")
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
+                   help="compute dtype of synthesis and LPIPS in the solve: float32 | bfloat16 (mixed "
+                   "precision: the optimizer state and the loss stay float32)")
     return p
 
 
 def _refuse(args: argparse.Namespace) -> None:
-    if args.dtype != "float32":
-        raise SystemExit(f"--dtype {args.dtype}: not yet ported to the PyTorch package")
     if getattr(args, "init", "lhs") == "encoder" and args.model != "sg2":
         raise SystemExit(f"--init encoder renders through StyleGAN2's synthesis; --model {args.model} "
                          "is not supported")
@@ -122,5 +120,5 @@ def config_from_args(args: argparse.Namespace) -> Config:
             blur_filter_size=args.blur_filter_size, crop_ratio=args.crop_ratio,
         ),
         run=RunConfig(sample_size=args.sample_size, batch_size=args.batch_size,
-                      save_dir=args.save_dir, seed=args.seed, device=args.device),
+                      save_dir=args.save_dir, seed=args.seed, device=args.device, dtype=args.dtype),
     )

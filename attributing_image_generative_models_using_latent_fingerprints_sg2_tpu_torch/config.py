@@ -98,6 +98,7 @@ class RunConfig:
     save_dir: str = "./result/"
     seed: int = 0
     device: str = "cuda"
+    dtype: str = "float32"  # compute dtype of synthesis and LPIPS in the solve ("float32" | "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)

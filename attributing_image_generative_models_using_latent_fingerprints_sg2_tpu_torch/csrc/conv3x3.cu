@@ -1,4 +1,4 @@
-// relu(conv3x3(x, w, stride 1, pad 1) + b), NHWC float32, C_in == C_out, as an
+// relu(conv3x3(x, w, stride 1, pad 1) + b), NHWC float32 (bfloat16 below), C_in == C_out, as an
 // implicit GEMM on Hopper's tensor cores.
 //
 // Replaces ops/vgg_pallas.py::conv3x3_relu (_conv3x3_kernel via _conv3x3_call):
@@ -31,6 +31,20 @@
 //     (fp_tc_tap); the two small passes sum into a second accumulator.
 // Epilogue: bias, ReLU, a shuffle between neighbouring lanes so that every
 // thread owns 4 consecutive channels, 16-byte stores, ragged edges masked.
+//
+// conv3x3_relu_bf16 (bfloat16 in and out, the TPU kernel's bf16 mode): one pass
+// of bf16 products into float32 accumulators, no split (bound: 889 GFLOP a
+// 16-chain step over 989 TFLOP/s, 0.9 ms).  A simple first version, through
+// the warp-level `mma.sync.m16n8k16` bf16 product of tc_tile.cuh (fp_bf16_taps),
+// not `wgmma`: the same 8 x 16 pixel x 64 channel block tile, 8 warps of 2 pixel
+// rows x 32 channels (2 x 4 fragments); per 32-channel chunk the haloed band
+// (10 x 18 pixels) and the chunk's 9 packed weight taps ([tap][64][32] bf16,
+// ops/tf32.py::pack_conv_weights_bf16) are copied with `cp.async` into one of
+// two shared-memory stages (rows padded to 40 bf16 so that fragment loads are
+// free of bank conflicts) while the other stage's 18 k16-steps run.  The
+// float32 bias is added to the float32 sum before the one rounding of the
+// output, as the TPU kernel does; the dx pass is the same kernel on the packed
+// adjoint taps without bias and ReLU.
 
 #include "tc_tile.cuh"
 
@@ -171,6 +185,110 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+
+// ---- bfloat16 variant ----
+using bf16 = __nv_bfloat16;
+constexpr int BT_KC = 32;                                 // input channels per chunk
+constexpr int BT_KS = BT_KC + 8;                          // shared row stride, bf16
+constexpr int BT_BAND = BAND_H * BAND_W * BT_KS;          // bf16 elements of a stage's band
+constexpr int BT_WTS = 9 * N_TILE * BT_KS;                // ... and of its weight taps
+constexpr int BT_STAGE = BT_BAND + BT_WTS;                // 60,480 bytes
+constexpr size_t BT_SMEM = 2 * sizeof(bf16) * BT_STAGE;
+
+// Chunk `chunk` (input channels 32 chunk ..) of the haloed band, zero outside the
+// image, and of the packed weights into a stage: 16-byte cp.async pieces.
+__device__ __forceinline__ void bt_load_stage(bf16* __restrict__ stage, const bf16* __restrict__ xb,
+                                              const bf16* __restrict__ wsrc, int ty0, int tx0, int h,
+                                              int wd, int c, int chunk) {
+  const int ci0 = chunk * BT_KC;
+  for (int i = threadIdx.x; i < BAND_H * BAND_W * (BT_KC / 8); i += THREADS) {
+    const int q = i % (BT_KC / 8);
+    const int p = i / (BT_KC / 8);
+    const int iy = ty0 - 1 + p / BAND_W;
+    const int ix = tx0 - 1 + p % BAND_W;
+    const bool valid = iy >= 0 && iy < h && ix >= 0 && ix < wd;
+    const bf16* src = valid ? xb + ((int64_t)iy * wd + ix) * c + ci0 + 8 * q : xb;
+    fp_cp_async16(stage + p * BT_KS + 8 * q, src, valid);
+  }
+  const bf16* wc = wsrc + (int64_t)chunk * 9 * N_TILE * BT_KC;
+  bf16* wts = stage + BT_BAND;
+  for (int i = threadIdx.x; i < 9 * N_TILE * (BT_KC / 8); i += THREADS) {
+    const int q = i % (BT_KC / 8);
+    const int r = i / (BT_KC / 8);
+    fp_cp_async16(wts + r * BT_KS + 8 * q, wc + r * BT_KC + 8 * q, true);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                        const float* __restrict__ bias, bf16* __restrict__ y, int h, int wd, int c,
+                        int relu) {
+  extern __shared__ __align__(16) uint8_t smem_bt[];
+  bf16* stages = reinterpret_cast<bf16*>(smem_bt);
+  const int tiles_x = (wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W;
+  const int ty0 = (blockIdx.x / tiles_x) * TILE_H;
+  const int tx0 = (blockIdx.x % tiles_x) * FP_TC_TILE_W;
+  const int co0 = blockIdx.y * N_TILE;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = warp & 3;   // tile rows 2 wm, 2 wm + 1
+  const int wn = warp >> 2;  // output channels 32 wn .. 32 wn + 31 of the block's 64
+  const int nchunks = c / BT_KC;
+  const bf16* xb = x + (int64_t)b * h * wd * c;
+  const bf16* wsrc = wp + (int64_t)blockIdx.y * nchunks * 9 * N_TILE * BT_KC;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  bt_load_stage(stages, xb, wsrc, ty0, tx0, h, wd, c, 0);
+  fp_cp_async_commit();
+  for (int chunk = 0; chunk < nchunks; ++chunk) {
+    if (chunk + 1 < nchunks)
+      bt_load_stage(stages + ((chunk + 1) & 1) * BT_STAGE, xb, wsrc, ty0, tx0, h, wd, c, chunk + 1);
+    fp_cp_async_commit();  // (empty after the last chunk: one group per iteration)
+    fp_cp_async_wait<1>();  // this chunk's stage has landed
+    __syncthreads();
+    const bf16* band = stages + (chunk & 1) * BT_STAGE;
+    fp_bf16_taps<2, 4, BT_KC / 16>(acc, band + (2 * wm * BAND_W + g) * BT_KS + 2 * t, BAND_W * BT_KS,
+                                   BAND_W, BT_KS, band + BT_BAND + (32 * wn + g) * BT_KS + 2 * t, BT_KS,
+                                   N_TILE * BT_KS);
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+  // epilogue: bias (float32) and ReLU on the float32 sum, one rounding to bf16
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int oy = ty0 + 2 * wm + mt;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ox = tx0 + g + 8 * half;
+      if (oy >= h || ox >= wd) continue;
+      bf16* yp = y + (((int64_t)b * h + oy) * wd + ox) * c + co0 + 32 * wn + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+        if (bias != nullptr) {
+          v0 += bias[co0 + 32 * wn + 8 * nt + 2 * t];
+          v1 += bias[co0 + 32 * wn + 8 * nt + 2 * t + 1];
+        }
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        *reinterpret_cast<uint32_t*>(yp + 8 * nt) = fp_pack_bf16x2(v0, v1);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -187,6 +305,23 @@ int fp_conv3x3_f32(const float* x, const float* wp, const float* bias, float* y,
   dim3 grid(tiles, c / N_TILE, n);
   conv3x3_tc_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(x, wp, bias, y, h, wd, c,
                                                                          relu);
+  return (int)cudaGetLastError();
+}
+
+// wp: the weights packed by ops/tf32.py::pack_conv_weights_bf16 (N tile 64); bias
+// float32 or null.  c must be a multiple of 64, x 16-byte aligned.
+int fp_conv3x3_bf16(const bf16* x, const bf16* wp, const float* bias, bf16* y, int n, int h,
+                    int wd, int c, int relu, void* stream) {
+  if (n <= 0 || h <= 0 || wd <= 0 || c <= 0 || c % N_TILE != 0 || n > 65535 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(conv3x3_bf16_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BT_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((h + TILE_H - 1) / TILE_H) * ((wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W);
+  dim3 grid(tiles, c / N_TILE, n);
+  conv3x3_bf16_kernel<<<grid, THREADS, BT_SMEM, (cudaStream_t)stream>>>(x, wp, bias, y, h, wd, c,
+                                                                        relu);
   return (int)cudaGetLastError();
 }
 

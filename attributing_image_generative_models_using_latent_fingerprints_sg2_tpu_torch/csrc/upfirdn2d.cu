@@ -1,4 +1,4 @@
-// 4-tap separable FIR kernels of the StyleGAN2 synthesis network, NHWC float32.
+// 4-tap separable FIR kernels of the StyleGAN2 synthesis network, NHWC float32 and bfloat16.
 //
 // blur4   replaces ops/upfirdn2d_pallas.py::blur4 (_blur4_kernel): up=down=1,
 //         pads (p0, p1) per axis, out = in + p0 + p1 - 3.  On the main path it is
@@ -51,11 +51,22 @@
 //   - the adjoint is a kernel of the same shape: a thread per input pixel
 //     gathers its 4 x 4 window of the cotangent.  The cotangent of `rgb` is the
 //     incoming one itself, so the fused backward is this one launch.
+//
+// bfloat16 variants (blur4_bf16, upblur4_bf16, upblur4_adj_bf16): the same
+// templates instantiated on __nv_bfloat16, as the TPU kernels keep their
+// scratch in x.dtype and read and write the activation dtype.  Taps and sums
+// stay float; each output is rounded to bf16 once, on store (round to nearest
+// even).  blur4 reads 16 bytes = 8 bf16 channels a thread where C % 8 == 0 and
+// both pointers are 16-byte aligned, else one channel a thread.  Half the
+// bytes of the float32 kernels: the bound halves, the arithmetic does not.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 struct Taps4 {
   float v[4];
@@ -63,26 +74,60 @@ struct Taps4 {
 
 constexpr int BLUR_THREADS = 256;
 
-// V floats of consecutive channels: one 16-byte or one 4-byte load / store.
+// one element as float, and back (bf16: exact widening, round-to-nearest-even narrowing)
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const bf16* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// V consecutive channels held as floats: one 16-byte load / store (4 float or 8 bf16),
+// or one element.
 template <int V>
 struct Vec {
   float v[V];
 };
-template <int V>
-__device__ __forceinline__ Vec<V> vec_load(const float* p);
+template <class T, int V>
+struct VecIo;
 template <>
-__device__ __forceinline__ Vec<4> vec_load<4>(const float* p) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  return {{t.x, t.y, t.z, t.w}};
-}
+struct VecIo<float, 4> {
+  static __device__ __forceinline__ Vec<4> load(const float* p) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    return {{t.x, t.y, t.z, t.w}};
+  }
+  static __device__ __forceinline__ void store(float* p, const Vec<4>& a) {
+    *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  }
+};
 template <>
-__device__ __forceinline__ Vec<1> vec_load<1>(const float* p) {
-  return {{__ldg(p)}};
-}
-__device__ __forceinline__ void vec_store(float* p, const Vec<4>& a) {
-  *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-}
-__device__ __forceinline__ void vec_store(float* p, const Vec<1>& a) { *p = a.v[0]; }
+struct VecIo<bf16, 8> {
+  static __device__ __forceinline__ Vec<8> load(const bf16* p) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+    Vec<8> a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a.v[2 * i] = __uint_as_float(w[i] << 16);
+      a.v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+    return a;
+  }
+  static __device__ __forceinline__ void store(bf16* p, const Vec<8>& a) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a.v[2 * i], a.v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <class T>
+struct VecIo<T, 1> {
+  static __device__ __forceinline__ Vec<1> load(const T* p) { return {{ld1(p)}}; }
+  static __device__ __forceinline__ void store(T* p, const Vec<1>& a) { st1(p, a.v[0]); }
+};
 
 // y[b, oy, ox, c] = sum_{i,j} fy[i] * fx[j] * x[b, oy + i - py0, ox + j - px0, c]
 // (zero outside the input).  fy/fx are the FLIPPED taps: correlation with the
@@ -90,9 +135,9 @@ __device__ __forceinline__ void vec_store(float* p, const Vec<1>& a) { *p = a.v[
 //   blockDim.x  channel vectors (of V channels) per block, blockDim.y output columns
 //   blockIdx.x  column tile * cgroups + channel group; blockIdx.y row strip of
 //               `rows` output rows; blockIdx.z image
-template <int V>
+template <class T, int V>
 __global__ void __launch_bounds__(BLUR_THREADS)
-    blur4_kernel(const float* __restrict__ x, float* __restrict__ y, int h, int w, int c, int oh,
+    blur4_kernel(const T* __restrict__ x, T* __restrict__ y, int h, int w, int c, int oh,
                  int ow, int py0, int px0, int rows, int cgroups, Taps4 fy, Taps4 fx) {
   const int cg = blockIdx.x % cgroups;
   const int tile = blockIdx.x / cgroups;
@@ -101,8 +146,8 @@ __global__ void __launch_bounds__(BLUR_THREADS)
   if (ch >= c || ox >= ow) return;
   const int oy0 = blockIdx.y * rows;
   const int nrows = min(rows, oh - oy0);
-  const float* xb = x + (int64_t)blockIdx.z * h * w * c + (int64_t)(ox - px0) * c + ch;
-  float* yb = y + ((int64_t)blockIdx.z * oh * ow + ox) * c + ch;
+  const T* xb = x + (int64_t)blockIdx.z * h * w * c + (int64_t)(ox - px0) * c + ch;
+  T* yb = y + ((int64_t)blockIdx.z * oh * ow + ox) * c + ch;
 
   // which of the thread's 4 input columns exist
   bool col_ok[4];
@@ -120,12 +165,12 @@ __global__ void __launch_bounds__(BLUR_THREADS)
   for (int r = 0; r < nrows + 3; ++r) {
     const int iy = oy0 - py0 + r;
     const bool row_ok = iy >= 0 && iy < h;
-    const float* xr = xb + (int64_t)iy * w * c;
+    const T* xr = xb + (int64_t)iy * w * c;
     Vec<V> in[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (row_ok && col_ok[j]) {
-        in[j] = vec_load<V>(xr + (int64_t)j * c);
+        in[j] = VecIo<T, V>::load(xr + (int64_t)j * c);
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e) in[j].v[e] = 0.f;
@@ -143,13 +188,13 @@ __global__ void __launch_bounds__(BLUR_THREADS)
       for (int e = 0; e < V; ++e)
         o.v[e] = fy.v[0] * win[0].v[e] + fy.v[1] * win[1].v[e] + fy.v[2] * win[2].v[e] +
                  fy.v[3] * win[3].v[e];
-      vec_store(yb + (int64_t)(oy0 + r - 3) * ow * c, o);
+      VecIo<T, V>::store(yb + (int64_t)(oy0 + r - 3) * ow * c, o);
     }
   }
 }
 
-template <int V>
-cudaError_t blur4_launch(const float* x, float* y, int n, int h, int w, int c, int oh, int ow,
+template <class T, int V>
+cudaError_t blur4_launch(const T* x, T* y, int n, int h, int w, int c, int oh, int ow,
                          int py0, int px0, Taps4 fy, Taps4 fx, cudaStream_t stream) {
   // block: bx channel vectors (a power of two, at most a warp) x by output columns
   const int nvec = c / V;
@@ -163,8 +208,8 @@ cudaError_t blur4_launch(const float* x, float* y, int n, int h, int w, int c, i
   int rows = 64;
   while (rows > 4 && (int64_t)tiles * cgroups * ((oh + rows - 1) / rows) * n < 2 * 132) rows /= 2;
   dim3 grid(tiles * cgroups, (oh + rows - 1) / rows, n);
-  blur4_kernel<V><<<grid, dim3(bx, by), 0, stream>>>(x, y, h, w, c, oh, ow, py0, px0, rows, cgroups,
-                                                      fy, fx);
+  blur4_kernel<T, V><<<grid, dim3(bx, by), 0, stream>>>(x, y, h, w, c, oh, ow, py0, px0, rows, cgroups,
+                                                         fy, fx);
   return cudaGetLastError();
 }
 
@@ -172,21 +217,21 @@ cudaError_t blur4_launch(const float* x, float* y, int n, int h, int w, int c, i
 // polyphase per axis:  y[2i] = f0 * x[i - 1] + f2 * x[i],  y[2i + 1] = f1 * x[i] +
 // f3 * x[i + 1]  (x is 0 outside).  CH consecutive channels of the quad of input
 // pixel (i, j); xb / rb / yb point at the image's first of those channels.
-template <int CH>
-__device__ __forceinline__ void upblur4_quad(const float* __restrict__ xb,
-                                             const float* __restrict__ rb, float* __restrict__ yb,
-                                             int i, int j, int h, int w, int c, const Taps4& f) {
+template <int CH, class T>
+__device__ __forceinline__ void upblur4_quad(const T* __restrict__ xb, const T* __restrict__ rb,
+                                             T* __restrict__ yb, int i, int j, int h, int w, int c,
+                                             const Taps4& f) {
   float ve[3][CH], vo[3][CH];  // vertical sums of the even / odd output row at columns j - 1 .. j + 1
 #pragma unroll
   for (int dj = 0; dj < 3; ++dj) {
     const int jj = j + dj - 1;
     const bool col_ok = jj >= 0 && jj < w;
-    const float* xc = xb + (i * w + jj) * c;
+    const T* xc = xb + (i * w + jj) * c;
 #pragma unroll
     for (int e = 0; e < CH; ++e) {
-      const float up = (col_ok && i > 0) ? __ldg(xc - w * c + e) : 0.f;
-      const float mid = col_ok ? __ldg(xc + e) : 0.f;
-      const float down = (col_ok && i + 1 < h) ? __ldg(xc + w * c + e) : 0.f;
+      const float up = (col_ok && i > 0) ? ld1(xc - w * c + e) : 0.f;
+      const float mid = col_ok ? ld1(xc + e) : 0.f;
+      const float down = (col_ok && i + 1 < h) ? ld1(xc + w * c + e) : 0.f;
       ve[dj][e] = f.v[0] * up + f.v[2] * mid;
       vo[dj][e] = f.v[1] * mid + f.v[3] * down;
     }
@@ -204,32 +249,33 @@ __device__ __forceinline__ void upblur4_quad(const float* __restrict__ xb,
   if (rb != nullptr) {
 #pragma unroll
     for (int e = 0; e < CH; ++e) {
-      out[0][e] += __ldg(rb + o0 + e);
-      out[1][e] += __ldg(rb + o0 + c + e);
-      out[2][e] += __ldg(rb + o1 + e);
-      out[3][e] += __ldg(rb + o1 + c + e);
+      out[0][e] += ld1(rb + o0 + e);
+      out[1][e] += ld1(rb + o0 + c + e);
+      out[2][e] += ld1(rb + o1 + e);
+      out[3][e] += ld1(rb + o1 + c + e);
     }
   }
 #pragma unroll
   for (int e = 0; e < CH; ++e) {
-    yb[o0 + e] = out[0][e];
-    yb[o0 + c + e] = out[1][e];
-    yb[o1 + e] = out[2][e];
-    yb[o1 + c + e] = out[3][e];
+    st1(yb + o0 + e, out[0][e]);
+    st1(yb + o0 + c + e, out[1][e]);
+    st1(yb + o1 + e, out[2][e]);
+    st1(yb + o1 + c + e, out[3][e]);
   }
 }
 
 // y = upblur4(x) (+ rgb when given).  x [n, h, w, c]; rgb, y [n, 2h, 2w, c].
 //   threadIdx.x / blockIdx.x input column, threadIdx.y / blockIdx.y input row, blockIdx.z image
-__global__ void upblur4_kernel(const float* __restrict__ x, const float* __restrict__ rgb,
-                               float* __restrict__ y, int h, int w, int c, Taps4 f) {
+template <class T>
+__global__ void upblur4_kernel(const T* __restrict__ x, const T* __restrict__ rgb, T* __restrict__ y,
+                               int h, int w, int c, Taps4 f) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= h || j >= w) return;
   const int64_t in_base = (int64_t)blockIdx.z * h * w * c;
-  const float* xb = x + in_base;
-  const float* rb = rgb != nullptr ? rgb + 4 * in_base : nullptr;
-  float* yb = y + 4 * in_base;
+  const T* xb = x + in_base;
+  const T* rb = rgb != nullptr ? rgb + 4 * in_base : nullptr;
+  T* yb = y + 4 * in_base;
   int c0 = 0;
   for (; c0 + 3 <= c; c0 += 3)
     upblur4_quad<3>(xb + c0, rb != nullptr ? rb + c0 : nullptr, yb + c0, i, j, h, w, c, f);
@@ -239,10 +285,10 @@ __global__ void upblur4_kernel(const float* __restrict__ x, const float* __restr
 
 // dx[i, j] = sum_{r,s} k[r] * k[s] * g[2i - 1 + r, 2j - 1 + s]  (g is 0 outside), k the
 // UNFLIPPED taps: CH consecutive channels of input pixel (i, j).
-template <int CH>
-__device__ __forceinline__ void upblur4_adj_pixel(const float* __restrict__ gb,
-                                                  float* __restrict__ db, int i, int j, int h,
-                                                  int w, int c, const Taps4& k) {
+template <int CH, class T>
+__device__ __forceinline__ void upblur4_adj_pixel(const T* __restrict__ gb, T* __restrict__ db,
+                                                  int i, int j, int h, int w, int c,
+                                                  const Taps4& k) {
   const int oh = 2 * h, ow = 2 * w;
   float acc[CH];
 #pragma unroll
@@ -258,26 +304,27 @@ __device__ __forceinline__ void upblur4_adj_pixel(const float* __restrict__ gb,
     for (int s = 0; s < 4; ++s) {
       const int gx = 2 * j - 1 + s;
       if (gx < 0 || gx >= ow) continue;
-      const float* gp = gb + (gy * ow + gx) * c;
+      const T* gp = gb + (gy * ow + gx) * c;
 #pragma unroll
-      for (int e = 0; e < CH; ++e) rowsum[e] += k.v[s] * __ldg(gp + e);
+      for (int e = 0; e < CH; ++e) rowsum[e] += k.v[s] * ld1(gp + e);
     }
 #pragma unroll
     for (int e = 0; e < CH; ++e) acc[e] += k.v[r] * rowsum[e];
   }
 #pragma unroll
-  for (int e = 0; e < CH; ++e) db[(i * w + j) * c + e] = acc[e];
+  for (int e = 0; e < CH; ++e) st1(db + (i * w + j) * c + e, acc[e]);
 }
 
 // dx = adjoint of upblur4 applied to g.  g [n, 2h, 2w, c]; dx [n, h, w, c].  Grid as upblur4_kernel.
-__global__ void upblur4_adj_kernel(const float* __restrict__ g, float* __restrict__ dx, int h,
-                                   int w, int c, Taps4 k) {
+template <class T>
+__global__ void upblur4_adj_kernel(const T* __restrict__ g, T* __restrict__ dx, int h, int w,
+                                   int c, Taps4 k) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= h || j >= w) return;
   const int64_t in_base = (int64_t)blockIdx.z * h * w * c;
-  const float* gb = g + 4 * in_base;
-  float* db = dx + in_base;
+  const T* gb = g + 4 * in_base;
+  T* db = dx + in_base;
   int c0 = 0;
   for (; c0 + 3 <= c; c0 += 3) upblur4_adj_pixel<3>(gb + c0, db + c0, i, j, h, w, c, k);
   for (; c0 < c; ++c0) upblur4_adj_pixel<1>(gb + c0, db + c0, i, j, h, w, c, k);
@@ -300,6 +347,37 @@ inline bool upblur4_sizes_ok(int n, int h, int w, int c) {
          (int64_t)4 * h * w * c < ((int64_t)1 << 31);
 }
 
+// one launch of each kernel in element type T (the typed bodies of the C entry points below)
+template <class T>
+int blur4_entry(const T* x, T* y, int n, int h, int w, int c, int oh, int ow, int py0, int px0,
+                const float* f, cudaStream_t stream) {
+  if (n <= 0 || c <= 0 || oh <= 0 || ow <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
+  Taps4 fy = {{f[0], f[1], f[2], f[3]}};
+  Taps4 fx = {{f[4], f[5], f[6], f[7]}};
+  constexpr int V = 16 / sizeof(T);  // channels in 16 bytes
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  if (c % V == 0 && aligned)
+    return (int)blur4_launch<T, V>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, stream);
+  return (int)blur4_launch<T, 1>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, stream);
+}
+
+template <class T>
+int upblur4_entry(const T* x, const T* rgb, T* y, int n, int h, int w, int c, Taps4 f,
+                  cudaStream_t stream) {
+  if (!upblur4_sizes_ok(n, h, w, c)) return (int)cudaErrorInvalidValue;
+  const PixelGrid pg = pixel_grid(n, h, w);
+  upblur4_kernel<T><<<pg.grid, pg.block, 0, stream>>>(x, rgb, y, h, w, c, f);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int upblur4_adj_entry(const T* g, T* dx, int n, int h, int w, int c, Taps4 k, cudaStream_t stream) {
+  if (!upblur4_sizes_ok(n, h, w, c)) return (int)cudaErrorInvalidValue;
+  const PixelGrid pg = pixel_grid(n, h, w);
+  upblur4_adj_kernel<T><<<pg.grid, pg.block, 0, stream>>>(g, dx, h, w, c, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -309,32 +387,36 @@ const char* fp_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 int fp_blur4_f32(const float* x, float* y, int n, int h, int w, int c, int oh, int ow, int py0,
                  int px0, float fy0, float fy1, float fy2, float fy3, float fx0, float fx1,
                  float fx2, float fx3, void* stream) {
-  if (n <= 0 || c <= 0 || oh <= 0 || ow <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
-  Taps4 fy = {{fy0, fy1, fy2, fy3}};
-  Taps4 fx = {{fx0, fx1, fx2, fx3}};
-  const bool vec4 = c % 4 == 0 && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  if (vec4)
-    return (int)blur4_launch<4>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, (cudaStream_t)stream);
-  return (int)blur4_launch<1>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, (cudaStream_t)stream);
+  const float f[8] = {fy0, fy1, fy2, fy3, fx0, fx1, fx2, fx3};
+  return blur4_entry<float>(x, y, n, h, w, c, oh, ow, py0, px0, f, (cudaStream_t)stream);
+}
+
+int fp_blur4_bf16(const bf16* x, bf16* y, int n, int h, int w, int c, int oh, int ow, int py0,
+                  int px0, float fy0, float fy1, float fy2, float fy3, float fx0, float fx1,
+                  float fx2, float fx3, void* stream) {
+  const float f[8] = {fy0, fy1, fy2, fy3, fx0, fx1, fx2, fx3};
+  return blur4_entry<bf16>(x, y, n, h, w, c, oh, ow, py0, px0, f, (cudaStream_t)stream);
 }
 
 // y = upblur4(x) + rgb; a null `rgb` leaves the add out.
 int fp_upblur4_f32(const float* x, const float* rgb, float* y, int n, int h, int w, int c,
                    float f0, float f1, float f2, float f3, void* stream) {
-  if (!upblur4_sizes_ok(n, h, w, c)) return (int)cudaErrorInvalidValue;
-  Taps4 f = {{f0, f1, f2, f3}};
-  const PixelGrid pg = pixel_grid(n, h, w);
-  upblur4_kernel<<<pg.grid, pg.block, 0, (cudaStream_t)stream>>>(x, rgb, y, h, w, c, f);
-  return (int)cudaGetLastError();
+  return upblur4_entry<float>(x, rgb, y, n, h, w, c, Taps4{{f0, f1, f2, f3}}, (cudaStream_t)stream);
+}
+
+int fp_upblur4_bf16(const bf16* x, const bf16* rgb, bf16* y, int n, int h, int w, int c, float f0,
+                    float f1, float f2, float f3, void* stream) {
+  return upblur4_entry<bf16>(x, rgb, y, n, h, w, c, Taps4{{f0, f1, f2, f3}}, (cudaStream_t)stream);
 }
 
 int fp_upblur4_adj_f32(const float* g, float* dx, int n, int h, int w, int c, float k0, float k1,
                        float k2, float k3, void* stream) {
-  if (!upblur4_sizes_ok(n, h, w, c)) return (int)cudaErrorInvalidValue;
-  Taps4 k = {{k0, k1, k2, k3}};
-  const PixelGrid pg = pixel_grid(n, h, w);
-  upblur4_adj_kernel<<<pg.grid, pg.block, 0, (cudaStream_t)stream>>>(g, dx, h, w, c, k);
-  return (int)cudaGetLastError();
+  return upblur4_adj_entry<float>(g, dx, n, h, w, c, Taps4{{k0, k1, k2, k3}}, (cudaStream_t)stream);
+}
+
+int fp_upblur4_adj_bf16(const bf16* g, bf16* dx, int n, int h, int w, int c, float k0, float k1,
+                        float k2, float k3, void* stream) {
+  return upblur4_adj_entry<bf16>(g, dx, n, h, w, c, Taps4{{k0, k1, k2, k3}}, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -42,6 +42,23 @@
 //            it; dx = conv_T(dz1, w1) is the same tile routine with N padded
 //            from 3 to 8 and the packed adjoint w1 (36 KB) resident in shared
 //            memory.  Neither relu1_1 nor dz1 nor dz2 reaches device memory.
+//
+// bfloat16 variants (vgg_slice1_fwd_bf16, vgg_slice1_bwd_bf16), bf16 in and
+// out, simple first versions on the warp-level `mma.sync.m16n8k16` bf16 product
+// of tc_tile.cuh (one pass, float32 accumulators; bound 81 and 85 GFLOP at
+// batch 16 over 989 TFLOP/s) with all of the packed w2 ([tap][64][64], rows
+// padded to 72 bf16) resident in shared memory, one 256-thread block an SM.
+// They round where the TPU kernel rounds: relu1_1 to bf16 in the band (its
+// `a1band` scratch is x.dtype) and dz1 to bf16 before the last product; biases
+// are float32, added to the float32 sums.
+//   forward  8 x 16 output tile as above; conv1 on the CUDA cores from the bf16
+//            x and w1 widened to float, in the float32 kernel's fmaf order;
+//            conv2 as 8 warps of 2 pixel rows x 32 channels.
+//   backward 14 x 14 dx tile: dz2 = g * [a2 > 0] (18 x 18, exact in bf16), da1 =
+//            conv_T(dz2, w2) on 16 x 16 (8 warps of 4 pixel rows x 32 channels),
+//            conv1's sign recomputed in the forward's fmaf order, dz1 = bf16(da1 *
+//            [z1 > 0]) over dz2's space, dx = conv_T(dz1, w1) with N padded to 8
+//            (8 warps of 2 pixel rows).
 
 #include "tc_tile.cuh"
 
@@ -413,6 +430,293 @@ __global__ void __launch_bounds__(B_THREADS, 1)
   }
 }
 
+
+// ---- bfloat16 variants ----
+using bf16 = __nv_bfloat16;
+constexpr int S_KS = 64 + 8;                                  // shared row stride of 64 channels, bf16
+constexpr int S_W2 = 9 * 64 * S_KS;                           // packed w2 taps, bf16 elements
+constexpr int S_THREADS = 256;
+// forward: w2 | a1 band (10 x 18) | x (12 x 20 x 3 float) | w1 (float) | b1
+constexpr int SF_A1 = F_BAND_PIXELS * S_KS;
+constexpr size_t SF_OFF_XS = sizeof(bf16) * (S_W2 + SF_A1);
+constexpr size_t SF_BYTES = SF_OFF_XS + sizeof(float) * (F_XS + F_W1 + 64);
+// backward: w2 | dz2 / dz1 band (18 x 18) | w1 adjoint taps (N 8) | x (18 x 18 x 3 float) | w1 | b1
+constexpr int SB_BAND = B_R2 * B_R2 * S_KS;
+constexpr int SB_W1F = 9 * 8 * S_KS;
+constexpr size_t SB_OFF_XS = sizeof(bf16) * (S_W2 + SB_BAND + SB_W1F);
+constexpr size_t SB_BYTES = SB_OFF_XS + sizeof(float) * (B_XS + F_W1 + 64);
+static_assert(SF_OFF_XS % 16 == 0 && SB_OFF_XS % 16 == 0 && SB_BYTES <= 232448, "layout");
+
+__device__ __forceinline__ float s_ld(const bf16* p) {
+  return __uint_as_float(static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// Packed weights ([chunk of 32][tap][n][32] bf16, ops/tf32.py::pack_conv_weights_bf16
+// with C_in = 64 and an N tile of `n`) into shared [tap][n][S_KS]: cp.async, 16 bytes a piece.
+__device__ __forceinline__ void s_load_taps(bf16* __restrict__ dst, const bf16* __restrict__ src, int n) {
+  const int rows = 9 * n;  // rows of one chunk
+  for (int i = threadIdx.x; i < 2 * rows * 4; i += S_THREADS) {
+    const int q = i & 3;
+    const int r = i >> 2;
+    fp_cp_async16(dst + (r % rows) * S_KS + 32 * (r / rows) + 8 * q, src + r * 32 + 8 * q, true);
+  }
+}
+
+// x (3 channels, bf16) on the `side_h` x `side_w` region at offset (y0, x0) as float, zero
+// outside the image; w1 (bf16) as float; b1.
+__device__ __forceinline__ void s_load_conv1(float* __restrict__ xs, float* __restrict__ w1s,
+                                             float* __restrict__ b1s, const bf16* __restrict__ x,
+                                             const bf16* __restrict__ w1, const float* __restrict__ b1,
+                                             int64_t img, int y0, int x0, int side_h, int side_w,
+                                             int h, int wd) {
+  for (int i = threadIdx.x; i < side_h * side_w * 3; i += S_THREADS) {
+    const int k = i % 3;
+    const int p = i / 3;
+    const int iy = y0 + p / side_w;
+    const int ix = x0 + p % side_w;
+    xs[i] = (iy >= 0 && iy < h && ix >= 0 && ix < wd) ? s_ld(x + (img + (int64_t)iy * wd + ix) * 3 + k) : 0.f;
+  }
+  for (int i = threadIdx.x; i < F_W1; i += S_THREADS) w1s[i] = s_ld(w1 + i);
+  if (threadIdx.x < 64) b1s[threadIdx.x] = b1[threadIdx.x];
+}
+
+// w1: HWIO [3,3,3,64] bf16; w2p: w2 packed by pack_conv_weights_bf16 (N tile 64).
+__global__ void __launch_bounds__(S_THREADS, 1)
+    slice1_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                           const float* __restrict__ b1, const bf16* __restrict__ w2p,
+                           const float* __restrict__ b2, bf16* __restrict__ y, int h, int wd) {
+  extern __shared__ __align__(16) uint8_t smem_s1f[];
+  bf16* w2s = reinterpret_cast<bf16*>(smem_s1f);
+  bf16* a1 = w2s + S_W2;
+  float* xs = reinterpret_cast<float*>(smem_s1f + SF_OFF_XS);
+  float* w1s = xs + F_XS;
+  float* b1s = w1s + F_W1;
+
+  const int tiles_x = (wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W;
+  const int ty0 = (blockIdx.x / tiles_x) * F_TILE_H;
+  const int tx0 = (blockIdx.x % tiles_x) * FP_TC_TILE_W;
+  const int64_t img = (int64_t)blockIdx.z * h * wd;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  s_load_taps(w2s, w2p, 64);
+  fp_cp_async_commit();
+  s_load_conv1(xs, w1s, b1s, x, w1, b1, img, ty0 - 2, tx0 - 2, F_XH, F_XW, h, wd);
+  __syncthreads();
+
+  // a1 = bf16(relu(conv1(x) + b1)) on the 10 x 18 region at offset -1, zero outside the
+  // image; one item = one pixel x 16 channels, summed as the float32 kernel sums
+  for (int i = threadIdx.x; i < 4 * F_BAND_PIXELS; i += S_THREADS) {
+    const int p = i % F_BAND_PIXELS;
+    const int cq = i / F_BAND_PIXELS;
+    const int r = p / F_BAND_W;
+    const int q = p % F_BAND_W;
+    const int ay = ty0 - 1 + r;
+    const int ax = tx0 - 1 + q;
+    float z[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) z[e] = 0.f;
+    if (ay >= 0 && ay < h && ax >= 0 && ax < wd) {
+      float xv[27];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int k = 0; k < 9; ++k) xv[dy * 9 + k] = xs[((r + dy) * F_XW + q) * 3 + k];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) z[e] = b1s[16 * cq + e];
+#pragma unroll
+      for (int k = 0; k < 27; ++k)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) z[e] = fmaf(xv[k], w1s[k * 64 + 16 * cq + e], z[e]);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) z[e] = fmaxf(z[e], 0.f);
+    }
+    uint32_t packed[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) packed[e] = fp_pack_bf16x2(z[2 * e], z[2 * e + 1]);
+    uint4* dst = reinterpret_cast<uint4*>(a1 + p * S_KS + 16 * cq);
+    dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+  }
+  fp_cp_async_wait<0>();
+  __syncthreads();
+
+  // a2 = conv(a1, w2): tile rows 2 wm, 2 wm + 1, channels 32 wn ..
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  fp_bf16_taps<2, 4, 4>(acc, a1 + (2 * wm * F_BAND_W + g) * S_KS + 2 * t, F_BAND_W * S_KS, F_BAND_W, S_KS,
+                        w2s + (32 * wn + g) * S_KS + 2 * t, S_KS, 64 * S_KS);
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int oy = ty0 + 2 * wm + mt;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ox = tx0 + g + 8 * half;
+      if (oy >= h || ox >= wd) continue;
+      bf16* yp = y + (img + (int64_t)oy * wd + ox) * 64 + 32 * wn + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = 32 * wn + 8 * nt + 2 * t;
+        const float v0 = fmaxf(acc[mt][nt][2 * half] + b2[co], 0.f);
+        const float v1 = fmaxf(acc[mt][nt][2 * half + 1] + b2[co + 1], 0.f);
+        *reinterpret_cast<uint32_t*>(yp + 8 * nt) = fp_pack_bf16x2(v0, v1);
+      }
+    }
+  }
+}
+
+// g, a2 [N,H,W,64], x [N,H,W,3] bf16; w1 HWIO bf16; w1fp, w2fp: flip_io(w1), flip_io(w2)
+// packed by pack_conv_weights_bf16 with N tiles of 8 and 64.
+__global__ void __launch_bounds__(S_THREADS, 1)
+    slice1_bwd_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a2,
+                           const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                           const float* __restrict__ b1, const bf16* __restrict__ w1fp,
+                           const bf16* __restrict__ w2fp, bf16* __restrict__ dx, int h, int wd) {
+  extern __shared__ __align__(16) uint8_t smem_s1b[];
+  bf16* w2s = reinterpret_cast<bf16*>(smem_s1b);
+  bf16* band = w2s + S_W2;
+  bf16* w1fs = band + SB_BAND;
+  float* xs = reinterpret_cast<float*>(smem_s1b + SB_OFF_XS);
+  float* w1s = xs + B_XS;
+  float* b1s = w1s + F_W1;
+
+  const int tiles_x = (wd + B_TILE - 1) / B_TILE;
+  const int ty0 = (blockIdx.x / tiles_x) * B_TILE;
+  const int tx0 = (blockIdx.x % tiles_x) * B_TILE;
+  const int64_t img = (int64_t)blockIdx.z * h * wd;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+
+  s_load_taps(w2s, w2fp, 64);
+  s_load_taps(w1fs, w1fp, 8);
+  fp_cp_async_commit();
+
+  // dz2 = g * [a2 > 0] on the 18 x 18 region at offset -2, zero outside the image
+  for (int i = threadIdx.x; i < B_R2 * B_R2 * 8; i += S_THREADS) {
+    const int q = i % 8;
+    const int p = i / 8;
+    const int gy = ty0 - 2 + p / B_R2;
+    const int gx = tx0 - 2 + p % B_R2;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gy >= 0 && gy < h && gx >= 0 && gx < wd) {
+      const int64_t off = (img + (int64_t)gy * wd + gx) * 64 + 8 * q;
+      const uint4 gv = *reinterpret_cast<const uint4*>(g + off);
+      const uint4 av = *reinterpret_cast<const uint4*>(a2 + off);
+      const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w}, aw[4] = {av.x, av.y, av.z, av.w};
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // each half: keep g where a2 > 0 (a positive bf16: sign clear, not zero)
+        const uint32_t lo = (aw[e] & 0x8000u) == 0 && (aw[e] & 0x7fffu) != 0 ? 0x0000ffffu : 0u;
+        const uint32_t hi = (aw[e] & 0x80000000u) == 0 && (aw[e] & 0x7fff0000u) != 0 ? 0xffff0000u : 0u;
+        o[e] = gw[e] & (lo | hi);
+      }
+      v = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    *reinterpret_cast<uint4*>(band + p * S_KS + 8 * q) = v;
+  }
+  s_load_conv1(xs, w1s, b1s, x, w1, b1, img, ty0 - 2, tx0 - 2, B_R2, B_R2, h, wd);
+  fp_cp_async_wait<0>();
+  __syncthreads();
+
+  // da1 on the 16 x 16 region at offset -1: rows 4 wm .. 4 wm + 3, channels 32 wn ..
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  // bit 16 mt + 4 nt + i of `keep`: accumulator element (mt, nt, i) lies inside the
+  // image and has conv1(x) + b1 > 0, summed as the forward sums it
+  uint64_t keep = 0;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int ry = 4 * wm + mt;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rx = gq + 8 * half;
+      const int gy = ty0 - 1 + ry;
+      const int gx = tx0 - 1 + rx;
+      if (gy < 0 || gy >= h || gx < 0 || gx >= wd) continue;
+      float xv[27];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int k = 0; k < 9; ++k) xv[dy * 9 + k] = xs[((ry + dy) * B_R2 + rx) * 3 + k];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = 32 * wn + 8 * nt + 2 * t;
+        float z0 = b1s[co], z1 = b1s[co + 1];
+#pragma unroll
+        for (int k = 0; k < 27; ++k) {
+          z0 = fmaf(xv[k], w1s[k * 64 + co], z0);
+          z1 = fmaf(xv[k], w1s[k * 64 + co + 1], z1);
+        }
+        if (z0 > 0.f) keep |= 1ull << (16 * mt + 4 * nt + 2 * half);
+        if (z1 > 0.f) keep |= 1ull << (16 * mt + 4 * nt + 2 * half + 1);
+      }
+    }
+  }
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  fp_bf16_taps<4, 4, 4>(acc, band + (4 * wm * B_R2 + gq) * S_KS + 2 * t, B_R2 * S_KS, B_R2, S_KS,
+                        w2s + (32 * wn + gq) * S_KS + 2 * t, S_KS, 64 * S_KS);
+  __syncthreads();  // every warp is done reading dz2
+
+  // dz1 = bf16(da1 * keep), over dz2 at the region's own offset (rows and columns 0..15)
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int bit = 16 * mt + 4 * nt + 2 * half;
+        const float v0 = (keep >> bit) & 1ull ? acc[mt][nt][2 * half] : 0.f;
+        const float v1 = (keep >> (bit + 1)) & 1ull ? acc[mt][nt][2 * half + 1] : 0.f;
+        const int p = (4 * wm + mt) * B_R2 + gq + 8 * half;
+        *reinterpret_cast<uint32_t*>(band + p * S_KS + 32 * wn + 8 * nt + 2 * t) = fp_pack_bf16x2(v0, v1);
+      }
+  __syncthreads();
+
+  // dx = conv(dz1, w1f) on the 16 x 16 region (rows 2 warp, 2 warp + 1; N = 8, 3 used),
+  // of which the 14 x 14 tile is kept
+  float accx[2][1][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) accx[mt][0][i] = 0.f;
+  fp_bf16_taps<2, 1, 4>(accx, band + (2 * warp * B_R2 + gq) * S_KS + 2 * t, B_R2 * S_KS, B_R2, S_KS,
+                        w1fs + gq * S_KS + 2 * t, S_KS, 8 * S_KS);
+  if (t >= 2) return;  // output channels 2t, 2t + 1: only 0, 1, 2 exist
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int ry = 2 * warp + mt;
+    const int oy = ty0 + ry;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rx = gq + 8 * half;
+      const int ox = tx0 + rx;
+      if (ry >= B_TILE || rx >= B_TILE || oy >= h || ox >= wd) continue;
+      bf16* o = dx + (img + (int64_t)oy * wd + ox) * 3 + 2 * t;
+      o[0] = __float2bfloat16_rn(accx[mt][0][2 * half]);
+      if (t == 0) o[1] = __float2bfloat16_rn(accx[mt][0][2 * half + 1]);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -441,6 +745,34 @@ int fp_vgg_slice1_bwd_f32(const float* g, const float* a2, const float* x, const
   dim3 grid(tiles, 1, n);
   slice1_bwd_kernel<<<grid, B_THREADS, B_BYTES, (cudaStream_t)stream>>>(g, a2, x, w1, b1, w1fp,
                                                                          w2fp, dx, h, wd);
+  return (int)cudaGetLastError();
+}
+
+int fp_vgg_slice1_fwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2p,
+                           const float* b2, bf16* y, int n, int h, int wd, void* stream) {
+  if (n <= 0 || h <= 0 || wd <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(slice1_fwd_bf16_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SF_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((h + F_TILE_H - 1) / F_TILE_H) * ((wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W);
+  slice1_fwd_bf16_kernel<<<dim3(tiles, 1, n), S_THREADS, SF_BYTES, (cudaStream_t)stream>>>(
+      x, w1, b1, w2p, b2, y, h, wd);
+  return (int)cudaGetLastError();
+}
+
+// g and a2 must be 16-byte aligned (64 channels a pixel).
+int fp_vgg_slice1_bwd_bf16(const bf16* g, const bf16* a2, const bf16* x, const bf16* w1,
+                           const float* b1, const bf16* w1fp, const bf16* w2fp, bf16* dx, int n,
+                           int h, int wd, void* stream) {
+  if (n <= 0 || h <= 0 || wd <= 0 || n > 65535 ||
+      ((reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(a2)) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(slice1_bwd_bf16_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SB_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((h + B_TILE - 1) / B_TILE) * ((wd + B_TILE - 1) / B_TILE);
+  slice1_bwd_bf16_kernel<<<dim3(tiles, 1, n), S_THREADS, SB_BYTES, (cudaStream_t)stream>>>(
+      g, a2, x, w1, b1, w1fp, w2fp, dx, h, wd);
   return (int)cudaGetLastError();
 }
 

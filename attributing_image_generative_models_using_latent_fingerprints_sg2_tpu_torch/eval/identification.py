@@ -39,7 +39,7 @@ def identification_point(
     steps: int = 2000,
     n_starts: int = 20,
     seed: int = 100,
-    dtype: str = "float32",
+    dtype: str = "bfloat16",
     chunk_samples: int = 0,
     clip_targets: bool = True,
     attack: str = "None",
@@ -58,11 +58,10 @@ def identification_point(
     it implies at each N.  ``issuance`` is "rejection" (pairwise distance at
     least ``min_distance``) or "rm" (Reed-Muller codewords; the code sets
     the distance).  ``init`` is "lhs" or "encoder" (an inverter trained on
-    the attack channel seeds the restarts).  Every random draw comes from a
-    generator folded from ``seed``.
+    the attack channel seeds the restarts).  ``dtype`` is the solver's compute
+    dtype (bfloat16 by default, as in the reference's study).  Every random
+    draw comes from a generator folded from ``seed``.
     """
-    if dtype != "float32":
-        raise NotImplementedError(f"dtype {dtype}: not yet ported to the PyTorch package")
     sizes = sorted(set(int(n) for n in registry_sizes))
     if sizes[0] < 2:
         raise ValueError("registry sizes must be >= 2")
@@ -127,7 +126,7 @@ def identification_point(
             init_kw = dict(alpha_init=alpha_init[c0:c1], key_init=key_init[c0:c1])
         res = attr.attribute_chunked(
             pipe.gen_params, None, basis, pipe.noise, targets[c0:c1], mcfg=pipe.mcfg, acfg=acfg,
-            generator=fold_in(fold_in(seed, 0xFACE + 1), c0),
+            generator=fold_in(fold_in(seed, 0xFACE + 1), c0), dtype=dtype,
             attack_cfg=(atk_cfg if attack_aware else None), **init_kw)
         logits_all.append(res.key_logits.detach().cpu().numpy().astype(np.float64))
         bits_all.append(res.key_bits.detach().cpu().numpy())

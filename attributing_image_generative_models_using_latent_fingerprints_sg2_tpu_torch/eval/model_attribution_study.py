@@ -14,8 +14,7 @@ Counterpart of the reference package's ``eval/model_attribution_study.py``:
   the best loss, the runner-up / best margin, the restart coherence of the
   chosen model's solve, and margin x coherence.
 
-The solver runs float32 (``dtype`` must be "float32": bfloat16 is not ported;
-the reference package's default is bfloat16).
+The solver's compute dtype defaults to bfloat16, as the reference's does.
 """
 
 from __future__ import annotations
@@ -90,7 +89,7 @@ def model_attribution_point(
     steps: int = 1000,
     n_starts: int = 8,
     seed: int = 100,
-    dtype: str = "float32",
+    dtype: str = "bfloat16",
     chunk_samples: int = 20,
     calib_frac: float = 0.5,
     threshold_slack: float = 2.0,
@@ -101,8 +100,6 @@ def model_attribution_point(
     decision accuracy with its Wilson interval, margins, decoded-key accuracy,
     the four open-set sweeps and the raw per-sample arrays.  Every draw comes
     from a generator folded from ``seed``."""
-    if dtype != "float32":
-        raise NotImplementedError(f"dtype {dtype}: not yet ported to the PyTorch package")
     if not registry:
         raise ValueError("empty registry")
     reg_names = list(registry.keys())
@@ -127,7 +124,8 @@ def model_attribution_point(
     losses_chunks, bits_chunks, best_chunks, coh_chunks = [], [], [], []
     chunk = chunk_samples or s_total
     for c0 in range(0, s_total, chunk):
-        res = attribute_model(pipes, torch.from_numpy(targets[c0:c0 + chunk]), fold_in(root, 0xC0 + c0), acfg)
+        res = attribute_model(pipes, torch.from_numpy(targets[c0:c0 + chunk]), fold_in(root, 0xC0 + c0), acfg,
+                              dtype=dtype)
         losses_chunks.append(res.losses)  # [M, chunk]
         bits_chunks.append(res.key_bits)
         best_chunks.append(res.best_model)

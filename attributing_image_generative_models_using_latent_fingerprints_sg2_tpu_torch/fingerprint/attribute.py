@@ -20,6 +20,14 @@ Adam is written out: b1=0.9, b2=0.999, eps=1e-8 outside the sqrt, bias
 correction by count+1, rate lr * exp(-decay * (count+1)) with count from 0
 (the reference's optax chain).  The reported per-restart loss is the last
 step's PRE-update loss; the returned alpha/key are the POST-update state.
+
+``dtype`` ("float32" | "bfloat16") is the compute dtype of synthesis and
+LPIPS, the reference's mixed precision: the latents, sigmoid(key), the
+embedding and wx stay float32; w+ (StyleGAN2) or wx (BigGAN) is rounded to
+the compute dtype; the solver attack runs on float32 and is rounded back; the
+mse residual is float32; the targets' LPIPS features come from the targets in
+the compute dtype (mse targets stay float32); Adam's state, the gradients and
+the loss sum are float32.
 """
 
 from __future__ import annotations
@@ -41,6 +49,14 @@ from .embed import FingerprintBasis, alpha_bound_penalty, bit_accuracy, content_
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 CTF_TAPS = 9  # blur support of the coarse-to-fine anneal; sigma shrinks inside it
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype: str) -> torch.dtype:
+    """The torch dtype of a solver ``dtype`` name ("float32" | "bfloat16")."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(COMPUTE_DTYPES)}, got {dtype!r}")
+    return COMPUTE_DTYPES[dtype]
 
 
 @dataclasses.dataclass
@@ -82,9 +98,9 @@ def make_attribution_step(
     gen_params, lpips_params, basis: FingerprintBasis, noise, mcfg: ModelConfig,
     acfg: AttributionConfig, target_feats, targets, attack_cfg: Optional[AttackConfig] = None,
     biggan_cfg: Optional[bg.BigGANConfig] = None, class_onehot: Optional[torch.Tensor] = None,
-    truncation: float = 0.4,
+    truncation: float = 0.4, dtype: str = "float32",
 ) -> Tuple[Callable, Callable]:
-    """(step, per_elem_loss) for [S, n] restarts.
+    """(step, per_elem_loss) for [S, n] restarts, synthesis and LPIPS in ``dtype``.
 
     ``target_feats``: list of [S, 1, h, w, c] normalized features
     (perceptual) or None; ``targets``: [S, 1, H, W, 3] images (mse) or None.
@@ -99,6 +115,7 @@ def make_attribution_step(
     at the host float ``truncation``.
     """
     nl = mcfg.n_latent
+    cdtype = compute_dtype(dtype)
     solver_attack = None
     if acfg.solver_attack != "None":
         solver_attack = make_solver_attack(attack_cfg if attack_cfg is not None else AttackConfig(),
@@ -110,18 +127,20 @@ def make_attribution_step(
         k = torch.sigmoid(key_logits)
         wx = content_latent(basis, alpha.reshape(s_ * n_, -1)) + key_offset(basis, k.reshape(s_ * n_, -1))
         if mcfg.model == "biggan":
-            imgs = bg.generate(gen_params, wx, class_onehot.expand(wx.shape[0], -1), truncation, biggan_cfg)
+            imgs = bg.generate(gen_params, wx.to(cdtype), class_onehot.expand(wx.shape[0], -1), truncation,
+                               biggan_cfg)
         else:
-            wplus = wx[:, None, :].expand(-1, nl, -1)
+            wplus = wx[:, None, :].expand(-1, nl, -1).to(cdtype)
             imgs = sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel)
         if solver_attack is not None:
-            imgs = solver_attack(imgs)
+            # the channel model in float32 (JPEG's DCT and quantisation lose too much in bf16)
+            imgs = solver_attack(imgs.float()).to(imgs.dtype)
         if acfg.loss == "perceptual":
             feats = lpips_mod.extract_raw_features(lpips_params, imgs)
             feats = [f.reshape((s_, n_) + tuple(f.shape[1:])) for f in feats]
             per = lpips_mod.distance_from_raw_features(lpips_params, feats, target_feats)
         else:
-            est, tgt = imgs.reshape((s_, n_) + tuple(imgs.shape[1:])), targets
+            est, tgt = imgs.float().reshape((s_, n_) + tuple(imgs.shape[1:])), targets
             if ctf_sigma is not None:
                 est, tgt = ctf_blur(est, ctf_sigma), ctf_blur(tgt, ctf_sigma)
             per = torch.mean((est - tgt) ** 2, dim=(-3, -2, -1))
@@ -213,14 +232,16 @@ def _polish_loop(per_elem: Callable, alpha: torch.Tensor, key_logits: torch.Tens
     return key_logits, cur
 
 
-def _targets_for_loss(lpips_params, targets: torch.Tensor, acfg: AttributionConfig):
-    """(target_feats, tgt): the targets' normalized features [S, 1, h, w, c]
-    (perceptual) or the images [S, 1, H, W, 3] (mse), the other None."""
+def _targets_for_loss(lpips_params, targets: torch.Tensor, acfg: AttributionConfig, dtype: str = "float32"):
+    """(target_feats, tgt): the normalized features [S, 1, h, w, c] of the
+    targets in ``dtype`` (perceptual) or the float32 images [S, 1, H, W, 3]
+    (mse), the other None."""
     with torch.no_grad():
         if acfg.loss == "perceptual":
-            return [f[:, None] for f in lpips_mod.extract_features(lpips_params, targets)], None
+            feats = lpips_mod.extract_features(lpips_params, targets.to(compute_dtype(dtype)))
+            return [f[:, None] for f in feats], None
         if acfg.loss == "mse":
-            return None, targets[:, None]
+            return None, targets.float()[:, None]
     raise ValueError(f"loss must be 'perceptual' or 'mse', got {acfg.loss!r}")
 
 
@@ -237,12 +258,15 @@ def polish_key_bits(
     biggan_cfg: Optional[bg.BigGANConfig] = None,
     class_onehot: Optional[torch.Tensor] = None,
     truncation: float = 0.4,
+    dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Polish an existing attribution against its targets (see
-    :func:`_polish_loop`); decode with ``round(sigmoid(key_logits))``."""
-    target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg)
+    :func:`_polish_loop`) with synthesis and LPIPS in ``dtype``; decode with
+    ``round(sigmoid(key_logits))``."""
+    target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg, dtype)
     _, per_elem = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
-                                        target_feats, tgt, attack_cfg, biggan_cfg, class_onehot, truncation)
+                                        target_feats, tgt, attack_cfg, biggan_cfg, class_onehot, truncation,
+                                        dtype)
     return _polish_loop(per_elem, alpha, key_logits, sweeps, margin=acfg.polish_margin)
 
 
@@ -260,13 +284,15 @@ def attribute(
     biggan_cfg: Optional[bg.BigGANConfig] = None,
     class_onehot: Optional[torch.Tensor] = None,
     truncation: float = 0.4,
+    dtype: str = "float32",
 ) -> AttributionResult:
     """Solve attribution for a batch of targets, all samples x restarts at once.
 
     ``alpha_init`` / ``key_init`` ([S, n, D-K] / [S, n, K]) replace the
     centered-LHS / zero restart initialization (drawn from ``generator``);
     ``n_starts`` overrides ``acfg.n_starts`` (a restart chunk).  BigGAN
-    pipelines pass ``pipeline.solver_kwargs(pipe)``."""
+    pipelines pass ``pipeline.solver_kwargs(pipe)``.  ``dtype`` is the compute
+    dtype of synthesis and LPIPS (module docstring)."""
     n_starts = acfg.n_starts if n_starts is None else n_starts
     steps = acfg.steps
     device = targets.device
@@ -278,9 +304,10 @@ def attribute(
     alpha0 = torch.as_tensor(alpha_init, dtype=torch.float32).to(device)
     key0 = torch.as_tensor(key_init, dtype=torch.float32).to(device)
 
-    target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg)
+    target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg, dtype)
     step, per_elem = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
-                                           target_feats, tgt, attack_cfg, biggan_cfg, class_onehot, truncation)
+                                           target_feats, tgt, attack_cfg, biggan_cfg, class_onehot, truncation,
+                                           dtype)
     sigmas = ctf_sigmas(acfg, steps)
     state = init_state(alpha0, key0)
     per = None

@@ -21,9 +21,10 @@ Same layout, initialisation, loss and optimizer as the reference:
   ``|g| < max_norm``; Adam b1 0.9, b2 0.999, eps 1e-8 outside the square
   root, bias correction from count 1.
 
-The render is float32 (the reference renders through a bfloat16 w+; the
-port's kernels are float32 only).  Training is a plain loop, one step at a
-time; the per-step losses stay on the device until the end.
+The render goes through a bfloat16 w+, as the reference's does: synthesis in
+bf16 (the bf16 kernels on the card), the image widened to float32 and then
+clipped; the encoder itself is float32.  Training is a plain loop, one step at
+a time; the per-step losses stay on the device until the end.
 """
 
 from __future__ import annotations
@@ -119,7 +120,9 @@ def apply_encoder(params: Params, imgs: torch.Tensor) -> Tuple[torch.Tensor, tor
 
     ``alpha_white`` is alpha / sigma_rest: every content axis is an equal
     share of the regression loss whatever the generator's spectrum."""
-    x = imgs.float().permute(0, 3, 1, 2)  # NCHW view of the NHWC batch
+    # NCHW view of the NHWC batch, from standard strides: the stem conv sums in another
+    # order for another layout (a batch of one from numpy's x[None] has batch stride 0)
+    x = imgs.float().clone(memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
     x = F.leaky_relu(F.conv2d(x, params["stem"], padding=1), SLOPE)
     for layer in params["convs"]:
         # "SAME" at stride 2 on an even size: no row/column before, one after
@@ -182,15 +185,17 @@ def render(gen_params, basis: FingerprintBasis, noise, mcfg: ModelConfig, batch:
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(imgs, alpha, bits): alpha ~ sigma_rest * N(0, 1) and bits ~ U{0, 1}
     from ``generator`` (or the given ones), the fingerprinted image with the
-    pipeline's fixed noise, clamped to [-1, 1], then ``attack`` (an eval-mode
-    ``attacks.make_attack`` function, drawing from ``generator``) if given."""
+    pipeline's fixed noise rendered through a bf16 w+ and widened to float32,
+    clamped to [-1, 1], then ``attack`` (an eval-mode ``attacks.make_attack``
+    function, drawing from ``generator``) if given."""
     if alpha is None:
         alpha = sample_alpha(basis, batch, generator)
     if bits is None:
         bits = sample_key_bits(basis.v_cap.shape[0], batch, generator, basis.v_cap.device)
     _, wx = embed(basis, alpha, bits)
-    wplus = wx[:, None, :].expand(-1, mcfg.n_latent, -1)
-    imgs = torch.clamp(sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel), -1.0, 1.0)
+    wplus = wx[:, None, :].expand(-1, mcfg.n_latent, -1).to(torch.bfloat16)
+    imgs = sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel)
+    imgs = torch.clamp(imgs.float(), -1.0, 1.0)
     if attack is not None:
         imgs = attack(imgs, generator)
     return imgs, alpha, bits

@@ -18,6 +18,10 @@ The solver's distance head (:func:`distance_from_raw_features`) has the
 reference's analytic backward: it recomputes the normalize/diff chain from
 the raw feature and the saved norm, and treats the cached target features
 and the lin heads as constants.
+
+In bfloat16 (the solver's bf16 mode) the backbone runs in the image's dtype;
+norms, squares and sums are taken in float32 and the normalized features are
+rounded back to the feature dtype, where the reference rounds them.
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.pool import maxpool2x2
-from ..ops.vgg_cuda import conv3x3_plain, conv3x3_relu
+from ..ops.vgg_cuda import conv3x3_relu
 from ..ops.vgg_slice_cuda import vgg_slice1
 from ..utils.device import resolve_device
 from ..utils.tree import tree_to
@@ -51,6 +56,14 @@ def scaling_layer(x: torch.Tensor) -> torch.Tensor:
     return (x - shift) / scale
 
 
+def _conv3x3_in_dtype(x: torch.Tensor, w_hwio: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """conv2d(x, w, pad 1) + b in x's dtype (cuDNN): the three channel-changing
+    convs, run as the reference runs them in the feature dtype (the conv's
+    output rounded, then the bias added in that dtype)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.to(x.dtype).permute(3, 2, 0, 1), bias.to(x.dtype), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
 def vgg16_features(params: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor) -> List[torch.Tensor]:
     """Scaled [B, H, W, 3] -> the five post-ReLU slice outputs."""
     x = vgg_slice1(x, params[0]["weight"], params[0]["bias"],
@@ -65,7 +78,7 @@ def vgg16_features(params: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor) -
         if p["weight"].shape[2] == p["weight"].shape[3]:
             x = conv3x3_relu(x, p["weight"], p["bias"])
         else:
-            x = torch.relu(conv3x3_plain(x, p["weight"], p["bias"]))
+            x = torch.relu(_conv3x3_in_dtype(x, p["weight"], p["bias"]))
         if conv_i in SLICE_END_CONV:
             feats.append(x)
         conv_i += 1
@@ -73,8 +86,10 @@ def vgg16_features(params: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor) -
 
 
 def normalize_feat(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
-    norm = torch.sqrt(torch.sum(f * f, dim=-1, keepdim=True))
-    return f / (norm + eps)
+    """Unit norm over channels, the norm accumulated in float32; in f's dtype."""
+    f32 = f.float()
+    norm = torch.sqrt(torch.sum(f32 * f32, dim=-1, keepdim=True))
+    return (f32 / (norm + eps)).to(f.dtype)
 
 
 def extract_raw_features(params: Dict[str, Any], img: torch.Tensor) -> List[torch.Tensor]:
@@ -90,7 +105,7 @@ def distance_from_features(params, feats0, feats1):
     """Per-sample LPIPS distance from pre-normalized features."""
     total = None
     for f0, f1, lin_w in zip(feats0, feats1, params["lin"]):
-        d = torch.mean(torch.sum((f0 - f1) ** 2 * lin_w, dim=-1), dim=(-2, -1))
+        d = torch.mean(torch.sum((f0 - f1).float() ** 2 * lin_w, dim=-1), dim=(-2, -1))
         total = d if total is None else total + d
     return total
 
@@ -102,13 +117,17 @@ def lpips(params, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
 
 class _FusedSliceDistance(torch.autograd.Function):
     """d = mean_hw sum_c lin_c (normalize(f) - t)^2 with the reference's
-    hand-derived backward; ``t`` and ``lin`` get no gradient."""
+    hand-derived backward; ``t`` and ``lin`` get no gradient.  The norm, the
+    squares and the sums are float32; the normalized feature is rounded to
+    f's dtype and the difference taken there, as the reference does (d is
+    float32, df in f's dtype)."""
 
     @staticmethod
     def forward(ctx, f, t, lin, eps):
-        norm = torch.sqrt(torch.sum(f * f, dim=-1, keepdim=True))
-        fn = f / (norm + eps)
-        d = torch.mean(torch.sum((fn - t) ** 2 * lin, dim=-1), dim=(-2, -1))
+        f32 = f.float()
+        norm = torch.sqrt(torch.sum(f32 * f32, dim=-1, keepdim=True))
+        fn = (f32 / (norm + eps)).to(f.dtype)
+        d = torch.mean(torch.sum((fn - t).float() ** 2 * lin, dim=-1), dim=(-2, -1))
         ctx.save_for_backward(f, t, lin, norm)
         ctx.eps = eps
         return d
@@ -116,13 +135,14 @@ class _FusedSliceDistance(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         f, t, lin, norm = ctx.saved_tensors
+        f32 = f.float()
         denom = norm + ctx.eps
-        e = f / denom - t
+        e = ((f32 / denom).to(f.dtype) - t).float()
         hw = f.shape[-3] * f.shape[-2]
-        u = e * (lin * (2.0 / hw)) * g[..., None, None, None]
-        s = torch.sum(u * f, dim=-1, keepdim=True)
-        df = u / denom - f * (s / (norm * denom * denom))
-        return df, None, None, None
+        u = e * (lin * (2.0 / hw)) * g[..., None, None, None].float()
+        s = torch.sum(u * f32, dim=-1, keepdim=True)
+        df = u / denom - f32 * (s / (norm * denom * denom))
+        return df.to(f.dtype), None, None, None
 
 
 def distance_from_raw_features(params, raw_feats, target_norm_feats, eps: float = 1e-10):

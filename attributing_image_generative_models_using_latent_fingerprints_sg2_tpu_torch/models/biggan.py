@@ -173,7 +173,10 @@ def generate(params: Params, z: torch.Tensor, class_onehot: torch.Tensor, trunca
              cfg: BigGANConfig = BigGANConfig()) -> torch.Tensor:
     """z [B, z_dim] (truncated noise), one-hot [B, num_classes], truncation a
     host float -> image [B, H, W, 3] in [-1, 1] (the reference's
-    ``g_ema(latent, class_vector, truncation)``)."""
+    ``g_ema(latent, class_vector, truncation)``).  A bf16 ``z`` (the solver's
+    bf16 mode) is widened where it meets the float32 class embedding, as the
+    reference's ``concatenate`` promotes it: from there the generator runs in
+    the parameters' float32, so its image is float32."""
     cond = torch.cat([z, class_embedding(params, class_onehot)], dim=1)
     ch = cfg.channel_width
     h = F.linear(cond, params["gen_z"]["w"], params["gen_z"]["b"])

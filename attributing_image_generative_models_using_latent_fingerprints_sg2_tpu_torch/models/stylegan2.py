@@ -18,6 +18,13 @@ algebra:
 
 Convolutions run on NCHW views of the NHWC tensors (``channels_last``
 memory), so no layout copies are made around them.
+
+Mixed precision follows the reference: synthesis runs in the latent's dtype
+(bfloat16 in the solver's bf16 mode).  The parameters stay float32 and are
+cast to the activation dtype at use; the style is computed in float32 from
+the bf16 latent and rounded for the modulation; the demodulation is computed
+in float32 and rounded before its multiply; noise, biases and the skip
+upsample run in the activation dtype.
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 def equal_linear(x: torch.Tensor, p: Params, lr_mul: float = 1.0, activation: bool = False):
     """Equalized-LR linear; ``p['weight']`` is [in, out]."""
     scale = (1.0 / math.sqrt(p["weight"].shape[0])) * lr_mul
-    out = x @ (p["weight"] * scale)
+    w = p["weight"] * scale
+    out = x.to(torch.promote_types(x.dtype, w.dtype)) @ w  # a bf16 x meets float32 weights in float32
     bias = p.get("bias")
     if activation:
         return fused_leaky_relu(out, None if bias is None else bias * lr_mul)
@@ -86,12 +94,13 @@ def modulated_conv2d(
     weight = p["weight"]
     kh, kw, cin, cout = weight.shape
     scale = 1.0 / math.sqrt(cin * kh * kw)
-    style = equal_linear(w_latent, p["mod"])  # [B, I]
-    xs = (x * style[:, None, None, :]).permute(0, 3, 1, 2)  # NCHW view, channels_last
+    style = equal_linear(w_latent, p["mod"])  # [B, I], float32
+    xs = (x * style[:, None, None, :].to(x.dtype)).permute(0, 3, 1, 2)  # NCHW view, channels_last
     w = weight * scale
+    wx = w.to(x.dtype)
     if upsample:
         # stored pre-flipped: flip back for the transposed conv, [I, O, kh, kw]
-        wt = torch.flip(w, (0, 1)).permute(2, 3, 0, 1)
+        wt = torch.flip(wx, (0, 1)).permute(2, 3, 0, 1)
         y = F.conv_transpose2d(xs, wt, stride=2).permute(0, 2, 3, 1)  # [B, 2H+1, 2W+1, O]
         factor = 2
         pp = (len(blur_kernel) - factor) - (kh - 1)
@@ -99,10 +108,10 @@ def modulated_conv2d(
         pad1 = pp // 2 + 1
         y = upfirdn2d(y, make_kernel(blur_kernel) * (factor ** 2), pad=(pad0, pad1))
     else:
-        y = F.conv2d(xs, w.permute(3, 2, 0, 1), padding=kh // 2).permute(0, 2, 3, 1)
+        y = F.conv2d(xs, wx.permute(3, 2, 0, 1), padding=kh // 2).permute(0, 2, 3, 1)
     if demodulate:
         w2 = torch.sum(w * w, dim=(0, 1))  # [I, O]
-        y = y * torch.rsqrt((style * style) @ w2 + eps)[:, None, None, :]
+        y = y * torch.rsqrt((style * style) @ w2 + eps)[:, None, None, :].to(y.dtype)
     return y
 
 
@@ -111,14 +120,15 @@ def styled_conv(x, w_latent, p: Params, noise: Optional[torch.Tensor], *, upsamp
     """Modulated conv + noise injection + fused bias/LeakyReLU."""
     y = modulated_conv2d(x, w_latent, p, upsample=upsample, blur_kernel=blur_kernel)
     if noise is not None:
-        y = y + p["noise_weight"] * noise
-    return fused_leaky_relu(y, p["act_bias"])
+        y = y + p["noise_weight"].to(y.dtype) * noise.to(y.dtype)
+    return fused_leaky_relu(y, p["act_bias"].to(y.dtype))
 
 
 def to_rgb(x, w_latent, p: Params, skip: Optional[torch.Tensor] = None, *,
            blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
     """1x1 modulated conv (no demod) + bias + upsampled skip."""
-    y = modulated_conv2d(x, w_latent, p, demodulate=False) + p["bias"]
+    y = modulated_conv2d(x, w_latent, p, demodulate=False)
+    y = y + p["bias"].to(y.dtype)
     if skip is not None:
         y = upsample2x_add(y, skip, blur_kernel)
     return y
@@ -139,7 +149,7 @@ def synthesis(params: Params, latent: torch.Tensor,
     if noise is None:
         noise = [None] * (1 + 2 * len(params["to_rgbs"]))
     const = params["input"]
-    out = const.expand(latent.shape[0], *const.shape[1:])
+    out = const.expand(latent.shape[0], *const.shape[1:]).to(latent.dtype)
     out = styled_conv(out, latent[:, 0], params["conv1"], noise[0], blur_kernel=blur_kernel)
     skip = to_rgb(out, latent[:, 1], params["to_rgb1"], None, blur_kernel=blur_kernel)
     i = 1

@@ -11,7 +11,9 @@ never load a half-written file (each builds to a private name and renames).
 Every C entry point takes raw device pointers, sizes and the CUDA stream,
 launches on that stream, allocates nothing, and returns
 ``cudaGetLastError()``; :class:`Kernel` raises on a non-zero result and
-counts successful launches.
+counts successful launches.  Each kernel has a float32 entry point and a
+bfloat16 one (``*_bf16``), registered as two kernels, so that the launch
+counts show which route a run took.
 """
 
 from __future__ import annotations
@@ -148,12 +150,33 @@ def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 CUDA tensors and nothing else."""
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_cuda_operands(name: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The kernels take contiguous CUDA tensors of float32 or of bfloat16, every
+    operand of one launch in the same dtype, which is returned; anything else
+    (float16, float64, a mix) raises."""
+    dtype = tensors[0].dtype
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"{name}: the CUDA kernels take float32 or bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: operands of one launch in {dtype} and {t.dtype}")
+    for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
+    return dtype
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """x in at least float32 (bf16 -> float32 exactly; float32 and float64 as they
+    are): where the plain versions compute what a bf16 kernel sums in float32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def by_dtype(dtype: torch.dtype, f32: Kernel, bf16: Kernel) -> Kernel:
+    """The variant of a kernel for ``dtype`` (checked by :func:`check_cuda_operands`)."""
+    return bf16 if dtype == torch.bfloat16 else f32

@@ -4,13 +4,16 @@ time), and the launches a solve step and a training step make.
 
 Counts come from shapes alone: useful floating-point operations of the
 function (a multiply-add is two), and the bytes it must move (each input read
-once, each output written once, float32).  The bound is the larger of bytes
-over the memory rate and operations over the peak rate of their kind:
+once, each output written once, 4 bytes an element in float32 and 2 in
+bfloat16).  The bound is the larger of bytes over the memory rate and
+operations over the peak rate of their kind:
 
-- ``fir``   depthwise FIR arithmetic: the float32 CUDA-core rate;
-- ``conv``  float32 matrix-product arithmetic: the better of the CUDA-core
+- ``fir``   depthwise FIR arithmetic: the float32 CUDA-core rate, in both
+            dtypes (the bf16 kernels sum in float);
+- ``conv``  matrix-product arithmetic: in float32 the better of the CUDA-core
             rate and the tensor cores' TF32 rate taken three times (the split
-            that keeps float32 accuracy, ``ops/tf32.py``).
+            that keeps float32 accuracy, ``ops/tf32.py``); in bfloat16 the
+            tensor cores' dense bf16 rate.
 
 Peaks are NVIDIA's published H100 SXM figures (dense, 700 W).
 """
@@ -22,6 +25,7 @@ from typing import Dict, Sequence, Tuple
 
 PEAK_F32 = 67e12        # FLOP/s, CUDA cores
 PEAK_TF32 = 495e12      # FLOP/s, tensor cores
+PEAK_BF16 = 989e12      # FLOP/s, tensor cores, dense
 PEAK_BYTES = 3.35e12    # B/s, HBM3
 CONV_RATE = max(PEAK_F32, PEAK_TF32 / 3)  # float32-accurate matrix product
 
@@ -34,6 +38,15 @@ CONV3X3_SHAPES = ((128, 128, 1), (256, 64, 2), (512, 32, 2), (512, 16, 3))
 SLICE1_H = 256
 LAUNCHES_PER_STEP = {"blur4": 12, "upblur4": 6, "upblur4_adj": 6, "conv3x3_relu": 16,
                      "vgg_slice1_fwd": 1, "vgg_slice1_bwd": 1}
+BF16_SUFFIX = "_bf16"  # the name of a kernel's bfloat16 variant is its own + this
+
+
+def step_launches(dtype: str = "float32") -> Dict[str, int]:
+    """Launches of one solve step in ``dtype`` ("float32" | "bfloat16"), by the
+    name of the kernel variant that runs them."""
+    suffix = BF16_SUFFIX if dtype == "bfloat16" else ""
+    return {k + suffix: v for k, v in LAUNCHES_PER_STEP.items()}
+
 # The 256px discriminator: (C, input size r) of its res blocks, each with two
 # blurs on its input width: pads (2, 2) before the 3x3 stride-2 conv (out r + 1)
 # and (1, 1) before the 1x1 stride-2 skip (out r - 1).
@@ -53,75 +66,81 @@ def train_launches(img_size: int, r1: bool) -> Dict[str, int]:
             "conv3x3_relu": 0, "vgg_slice1_fwd": 0, "vgg_slice1_bwd": 0}
 
 
-def _counts(flops: float, nbytes: float, kind: str) -> Dict[str, object]:
-    rate = PEAK_F32 if kind == "fir" else CONV_RATE
+def _counts(flops: float, elems: float, kind: str, dtype: str = "float32") -> Dict[str, object]:
+    """Bound of ``flops`` operations of ``kind`` on ``elems`` elements moved in ``dtype``."""
+    if kind == "fir":
+        rate = PEAK_F32
+    else:
+        rate = PEAK_BF16 if dtype == "bfloat16" else CONV_RATE
+    nbytes = elems * (2 if dtype == "bfloat16" else 4)
     t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES
     return {"flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def blur4(n: int, c: int, oh: int, ow: int, pads: Tuple[int, int] = (1, 1)) -> Dict[str, object]:
+def blur4(n: int, c: int, oh: int, ow: int, pads: Tuple[int, int] = (1, 1),
+          dtype: str = "float32") -> Dict[str, object]:
     """4x4 FIR with ``pads`` per axis, so the input is (oh + 3 - p0 - p1) x
     (ow + 3 - p0 - p1): (1, 1) is the forward (in = out + 1), (2, 2) its adjoint
     (in = out - 1).  16 taps an output, taps that meet the padding included."""
     grow = 3 - pads[0] - pads[1]
-    return _counts(2.0 * 16 * n * oh * ow * c, 4.0 * n * c * ((oh + grow) * (ow + grow) + oh * ow), "fir")
+    return _counts(2.0 * 16 * n * oh * ow * c, 1.0 * n * c * ((oh + grow) * (ow + grow) + oh * ow), "fir", dtype)
 
 
-def upblur4(n: int, c: int, h: int, w: int, fused: bool = False) -> Dict[str, object]:
+def upblur4(n: int, c: int, h: int, w: int, fused: bool = False, dtype: str = "float32") -> Dict[str, object]:
     """up=2 4x4 FIR: 4 of the 16 taps meet a non-zero sample for every output.
     ``fused``: ``rgb + upblur4(x)``, one more add an output and ``rgb`` read once."""
     outs = 4.0 * n * h * w * c
-    return _counts((2.0 * 4 + fused) * outs, 4.0 * (outs / 4 + outs * (1 + fused)), "fir")
+    return _counts((2.0 * 4 + fused) * outs, outs / 4 + outs * (1 + fused), "fir", dtype)
 
 
-def upblur4_adj(n: int, c: int, h: int, w: int) -> Dict[str, object]:
+def upblur4_adj(n: int, c: int, h: int, w: int, dtype: str = "float32") -> Dict[str, object]:
     """upblur4's adjoint, (2h x 2w) -> (h x w): 16 taps for every element of the smaller side."""
-    return _counts(2.0 * 16 * n * h * w * c, 4.0 * n * c * (4 * h * w + h * w), "fir")
+    return _counts(2.0 * 16 * n * h * w * c, 1.0 * n * c * (4 * h * w + h * w), "fir", dtype)
 
 
-def conv3x3(n: int, h: int, w: int, c: int) -> Dict[str, object]:
+def conv3x3(n: int, h: int, w: int, c: int, dtype: str = "float32") -> Dict[str, object]:
     """Square 3x3 conv (+ bias + ReLU): x and y once, the weights and bias once."""
-    return _counts(2.0 * 9 * c * c * n * h * w, 4.0 * (2 * n * h * w * c + 9 * c * c + c), "conv")
+    return _counts(2.0 * 9 * c * c * n * h * w, 2.0 * n * h * w * c + 9 * c * c + c, "conv", dtype)
 
 
-def slice1_fwd(n: int, h: int, w: int) -> Dict[str, object]:
+def slice1_fwd(n: int, h: int, w: int, dtype: str = "float32") -> Dict[str, object]:
     """conv 3 -> 64 + conv 64 -> 64; reads x, writes a2."""
     flops = 2.0 * 9 * (3 * 64 + 64 * 64) * n * h * w
-    return _counts(flops, 4.0 * (n * h * w * (3 + 64) + 9 * 64 * (3 + 64) + 128), "conv")
+    return _counts(flops, 1.0 * n * h * w * (3 + 64) + 9 * 64 * (3 + 64) + 128, "conv", dtype)
 
 
-def slice1_bwd(n: int, h: int, w: int) -> Dict[str, object]:
+def slice1_bwd(n: int, h: int, w: int, dtype: str = "float32") -> Dict[str, object]:
     """conv_T 64 -> 64, conv1 recomputed for its sign, conv_T 64 -> 3; reads g, a2, x, writes dx."""
     flops = 2.0 * 9 * (64 * 64 + 2 * 3 * 64) * n * h * w
-    return _counts(flops, 4.0 * (n * h * w * (64 + 64 + 3 + 3) + 9 * 64 * (3 + 64) + 64), "conv")
+    return _counts(flops, 1.0 * n * h * w * (64 + 64 + 3 + 3) + 9 * 64 * (3 + 64) + 64, "conv", dtype)
 
 
-def main_path(name: str, n: int) -> Sequence[Tuple[str, Dict[str, object]]]:
+def main_path(name: str, n: int, dtype: str = "float32") -> Sequence[Tuple[str, Dict[str, object]]]:
     """(shape label, counts) of every distinct launch shape of kernel ``name``
-    on the 256px main path at batch ``n``."""
+    on the 256px main path at batch ``n`` in ``dtype``."""
     if name == "blur4":
-        return [(f"C{c}_H{h}", blur4(n, c, h, h)) for c, h in BLUR4_SHAPES]
+        return [(f"C{c}_H{h}", blur4(n, c, h, h, dtype=dtype)) for c, h in BLUR4_SHAPES]
     if name == "blur4_adj":  # the backward's launches of blur4: H -> H + 1
-        return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2))) for c, h in BLUR4_SHAPES]
+        return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2), dtype)) for c, h in BLUR4_SHAPES]
     if name == "blur4_disc":  # the discriminator's blurs and (``_adj``) their adjoints
         out = []
         for c, r in DISC_BLUR_SHAPES:
-            out += [(f"D_C{c}_R{r}_p22", blur4(n, c, r + 1, r + 1, (2, 2))),
-                    (f"D_C{c}_R{r}_p11", blur4(n, c, r - 1, r - 1, (1, 1))),
-                    (f"D_C{c}_R{r}_p22_adj", blur4(n, c, r, r, (1, 1))),
-                    (f"D_C{c}_R{r}_p11_adj", blur4(n, c, r, r, (2, 2)))]
+            out += [(f"D_C{c}_R{r}_p22", blur4(n, c, r + 1, r + 1, (2, 2), dtype)),
+                    (f"D_C{c}_R{r}_p11", blur4(n, c, r - 1, r - 1, (1, 1), dtype)),
+                    (f"D_C{c}_R{r}_p22_adj", blur4(n, c, r, r, (1, 1), dtype)),
+                    (f"D_C{c}_R{r}_p11_adj", blur4(n, c, r, r, (2, 2), dtype))]
         return out
     if name == "upblur4":  # fused with the ToRGB add, as the main path launches it
-        return [(f"C3_H{h}", upblur4(n, 3, h, h, fused=True)) for h in UPBLUR4_SHAPES]
+        return [(f"C3_H{h}", upblur4(n, 3, h, h, fused=True, dtype=dtype)) for h in UPBLUR4_SHAPES]
     if name == "upblur4_adj":
-        return [(f"C3_H{h}", upblur4_adj(n, 3, h, h)) for h in UPBLUR4_SHAPES]
+        return [(f"C3_H{h}", upblur4_adj(n, 3, h, h, dtype)) for h in UPBLUR4_SHAPES]
     if name == "conv3x3_relu":
-        return [(f"C{c}_H{h}", conv3x3(n, h, h, c)) for c, h, _ in CONV3X3_SHAPES]
+        return [(f"C{c}_H{h}", conv3x3(n, h, h, c, dtype)) for c, h, _ in CONV3X3_SHAPES]
     if name == "vgg_slice1_fwd":
-        return [(f"C3_H{SLICE1_H}", slice1_fwd(n, SLICE1_H, SLICE1_H))]
+        return [(f"C3_H{SLICE1_H}", slice1_fwd(n, SLICE1_H, SLICE1_H, dtype))]
     if name == "vgg_slice1_bwd":
-        return [(f"C3_H{SLICE1_H}", slice1_bwd(n, SLICE1_H, SLICE1_H))]
+        return [(f"C3_H{SLICE1_H}", slice1_bwd(n, SLICE1_H, SLICE1_H, dtype))]
     raise KeyError(name)
 
 

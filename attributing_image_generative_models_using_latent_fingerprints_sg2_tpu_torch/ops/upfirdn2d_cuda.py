@@ -11,7 +11,10 @@ Counterpart of the reference's ``ops/upfirdn2d_pallas.py``:
                computes that adjoint outside Pallas).
 
 Each public function runs its plain PyTorch version on a CPU tensor and the
-CUDA kernel on a CUDA tensor (float32, else it raises).  On a CUDA tensor
+CUDA kernel on a CUDA tensor: float32, or bfloat16 through the kernels' bf16
+variants (``*_bf16``), else it raises.  A bf16 tensor stays bf16 end to end;
+the kernels and their plain versions sum in float32 and round each output to
+bf16 once, where the reference's TPU kernels round.  On a CUDA tensor
 every backward is itself an autograd Function over these three kernels, so
 the ops are differentiable to any order (training's R1 penalty takes a
 gradient of a gradient through the discriminator's blurs).  Taps are the
@@ -25,7 +28,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._cuda import FLOAT, INT, PTR, Kernel, check_cuda_f32, register
+from ._cuda import FLOAT, INT, PTR, Kernel, by_dtype, check_cuda_operands, register, widen
 
 BLUR4 = register(Kernel(
     "blur4", "fp_blur4_f32", [PTR, PTR] + [INT] * 8 + [FLOAT] * 8,
@@ -42,6 +45,13 @@ UPBLUR4_ADJ = register(Kernel(
     source="csrc/upfirdn2d.cu",
     replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/upfirdn2d_pallas.py:235",
 ))
+BLUR4_BF16 = register(Kernel(
+    "blur4_bf16", "fp_blur4_bf16", BLUR4.argtypes[:-1], source=BLUR4.source, replaces=BLUR4.replaces))
+UPBLUR4_BF16 = register(Kernel(
+    "upblur4_bf16", "fp_upblur4_bf16", UPBLUR4.argtypes[:-1], source=UPBLUR4.source, replaces=UPBLUR4.replaces))
+UPBLUR4_ADJ_BF16 = register(Kernel(
+    "upblur4_adj_bf16", "fp_upblur4_adj_bf16", UPBLUR4_ADJ.argtypes[:-1], source=UPBLUR4_ADJ.source,
+    replaces=UPBLUR4_ADJ.replaces))
 
 
 def depthwise_correlate(
@@ -61,14 +71,15 @@ def _outer(a: Sequence[float], b: Sequence[float], like: torch.Tensor) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# plain versions
+# plain versions: the result in the input's dtype; a bf16 input is widened to
+# float32 exactly and its result rounded once, as the kernels do
 # ---------------------------------------------------------------------------
 
 
 def blur4_plain(x, ky, kx, pad_y, pad_x) -> torch.Tensor:
     """upfirdn2d(x, outer(ky, kx), pad=...): correlate with the flipped kernel."""
     k = _outer(tuple(ky)[::-1], tuple(kx)[::-1], x)
-    return depthwise_correlate(x, k, (pad_y[0], pad_y[1], pad_x[0], pad_x[1]))
+    return depthwise_correlate(widen(x), k, (pad_y[0], pad_y[1], pad_x[0], pad_x[1])).to(x.dtype)
 
 
 def blur4_strips(x, ky, kx, pad_y, pad_x, rows: int = 64, vec: int = 4) -> torch.Tensor:
@@ -99,19 +110,28 @@ def blur4_strips(x, ky, kx, pad_y, pad_x, rows: int = 64, vec: int = 4) -> torch
     return y
 
 
-def upblur4_plain(x, k) -> torch.Tensor:
-    """upfirdn2d(x, outer(k, k), up=2, pad=(2, 1)): zero-stuff, pad, correlate."""
+def _upblur4_wide(x, k) -> torch.Tensor:
     n, h, w, c = x.shape
-    u = x.new_zeros(n, 2 * h, 2 * w, c)
+    u = x.new_zeros((n, 2 * h, 2 * w, c), dtype=torch.promote_types(x.dtype, torch.float32))
     u[:, ::2, ::2] = x
     kf = tuple(k)[::-1]
     return depthwise_correlate(u, _outer(kf, kf, x), (2, 1, 2, 1))
 
 
+def upblur4_plain(x, k) -> torch.Tensor:
+    """upfirdn2d(x, outer(k, k), up=2, pad=(2, 1)): zero-stuff, pad, correlate."""
+    return _upblur4_wide(x, k).to(x.dtype)
+
+
+def upblur4_add_plain(rgb, x, k) -> torch.Tensor:
+    """``rgb + upblur4(x, k)``, summed wide and rounded once, as the fused kernel."""
+    return (widen(rgb) + _upblur4_wide(x, k)).to(rgb.dtype)
+
+
 def upblur4_adjoint_plain(g: torch.Tensor, k) -> torch.Tensor:
     """Adjoint of upblur4: down=2 correlation with outer(k, k), pad (1, 1)
     (the reference's ``_upblur4_bwd``)."""
-    return depthwise_correlate(g, _outer(k, k, g), (1, 1, 1, 1), stride=2)
+    return depthwise_correlate(widen(g), _outer(k, k, g), (1, 1, 1, 1), stride=2).to(g.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -121,14 +141,14 @@ def upblur4_adjoint_plain(g: torch.Tensor, k) -> torch.Tensor:
 
 def blur4_launch(x, fy, fx, pad_y, pad_x) -> torch.Tensor:
     """Launch with FLIPPED taps fy/fx (correlation taps)."""
-    check_cuda_f32("blur4", x)
+    kernel = by_dtype(check_cuda_operands("blur4", x), BLUR4, BLUR4_BF16)
     n, h, w, c = x.shape
     oh = h + pad_y[0] + pad_y[1] - 3
     ow = w + pad_x[0] + pad_x[1] - 3
     if oh <= 0 or ow <= 0:
         raise ValueError(f"blur4: empty output for input {tuple(x.shape)} and pads {pad_y}, {pad_x}")
     y = torch.empty((n, oh, ow, c), device=x.device, dtype=x.dtype)
-    BLUR4(x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow, pad_y[0], pad_x[0], *fy, *fx)
+    kernel(x.data_ptr(), y.data_ptr(), n, h, w, c, oh, ow, pad_y[0], pad_x[0], *fy, *fx)
     return y
 
 
@@ -152,25 +172,23 @@ class _Blur4(torch.autograd.Function):
 
 def upblur4_launch(x, k, rgb=None) -> torch.Tensor:
     """upblur4(x) (+ ``rgb`` [N, 2H, 2W, C] when given) with UNFLIPPED taps ``k``."""
-    check_cuda_f32("upblur4", x)
+    kernel = by_dtype(check_cuda_operands("upblur4", x, *([] if rgb is None else [rgb])), UPBLUR4, UPBLUR4_BF16)
     n, h, w, c = x.shape
     y = torch.empty((n, 2 * h, 2 * w, c), device=x.device, dtype=x.dtype)
-    if rgb is not None:
-        check_cuda_f32("upblur4", rgb)
-        if rgb.shape != y.shape:
-            raise ValueError(f"upblur4: rgb {tuple(rgb.shape)} does not match the output {tuple(y.shape)}")
-    UPBLUR4(x.data_ptr(), None if rgb is None else rgb.data_ptr(), y.data_ptr(), n, h, w, c, *k[::-1])
+    if rgb is not None and rgb.shape != y.shape:
+        raise ValueError(f"upblur4: rgb {tuple(rgb.shape)} does not match the output {tuple(y.shape)}")
+    kernel(x.data_ptr(), None if rgb is None else rgb.data_ptr(), y.data_ptr(), n, h, w, c, *k[::-1])
     return y
 
 
 def upblur4_adjoint_launch(g, k) -> torch.Tensor:
     """The adjoint of upblur4 applied to g [N, 2H, 2W, C], UNFLIPPED taps ``k``."""
-    check_cuda_f32("upblur4_adj", g)
+    kernel = by_dtype(check_cuda_operands("upblur4_adj", g), UPBLUR4_ADJ, UPBLUR4_ADJ_BF16)
     n, oh, ow, c = g.shape
     if oh % 2 or ow % 2:
         raise ValueError(f"upblur4_adj: odd cotangent size {tuple(g.shape)}")
     dx = torch.empty((n, oh // 2, ow // 2, c), device=g.device, dtype=g.dtype)
-    UPBLUR4_ADJ(g.data_ptr(), dx.data_ptr(), n, oh // 2, ow // 2, c, *k)
+    kernel(g.data_ptr(), dx.data_ptr(), n, oh // 2, ow // 2, c, *k)
     return dx
 
 
@@ -224,5 +242,5 @@ def upblur4_add(rgb: torch.Tensor, x: torch.Tensor, k) -> torch.Tensor:
     """``rgb + upblur4(x, k)`` in one pass: the ToRGB skip connection."""
     k = tuple(float(v) for v in k)
     if x.device.type == "cpu":
-        return rgb + upblur4_plain(x, k)
+        return upblur4_add_plain(rgb, x, k)
     return _Upblur4.apply(x, rgb, k)

@@ -3,8 +3,11 @@
 Counterpart of the reference's ``ops/vgg_pallas.py::conv3x3_relu``:
 ``relu(conv2d(x, w, stride 1, pad 1) + b)`` on NHWC with HWIO weights and
 C_in == C_out.  The kernel is an implicit GEMM on the tensor cores with the
-three-pass TF32 split (float32 accuracy); it reads the weights packed by
-``ops/tf32.py``, which happens once per weight tensor, not per call.  The
+three-pass TF32 split (float32 accuracy); a bfloat16 ``x`` goes to its bf16
+variant (``conv3x3_relu_bf16``: one pass of bf16 products, float32 sums, the
+float32 bias added before the one rounding).  Both read the weights packed by
+``ops/tf32.py`` (float32 parameters, rounded to bf16 for the bf16 variant),
+which happens once per weight tensor and dtype, not per call.  The
 backward's dx runs through the same kernel (no bias, no ReLU) on the
 ReLU-masked cotangent with the packed adjoint (spatially flipped,
 in/out-swapped) taps; dw and db are computed in plain PyTorch, and only when
@@ -16,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._cuda import INT, PTR, Kernel, check_cuda_f32, register
+from ._cuda import INT, PTR, Kernel, by_dtype, check_cuda_operands, register, widen
 from .tf32 import packed_weights
 
 N_TILE = 64  # output channels per block of csrc/conv3x3.cu
@@ -26,32 +29,45 @@ CONV3X3 = register(Kernel(
     source="csrc/conv3x3.cu",
     replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/vgg_pallas.py:173",
 ))
+CONV3X3_BF16 = register(Kernel(
+    "conv3x3_relu_bf16", "fp_conv3x3_bf16", CONV3X3.argtypes[:-1], source=CONV3X3.source,
+    replaces=CONV3X3.replaces))
 
 
 def conv3x3_plain(x: torch.Tensor, w_hwio: torch.Tensor, bias=None) -> torch.Tensor:
-    """conv2d(x, w, stride 1, pad 1) + b on NHWC / HWIO."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1), bias, padding=1)
-    return y.permute(0, 2, 3, 1)
+    """The kernels' plain conv: conv2d(x, w, stride 1, pad 1) + b on NHWC /
+    HWIO, summed in at least float32 from x's values and the weights rounded
+    to x's dtype, the bias added unrounded, then rounded once to x's dtype
+    (in float32, the plain conv itself)."""
+    xw = widen(x)
+    b = None if bias is None else bias.to(xw.dtype)
+    y = F.conv2d(xw.permute(0, 3, 1, 2), w_hwio.to(x.dtype).to(xw.dtype).permute(3, 2, 0, 1), b, padding=1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def conv3x3_relu_plain(x: torch.Tensor, w_hwio: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: relu(conv3x3(x, w) + b) rounded once to x's dtype."""
     return torch.relu(conv3x3_plain(x, w_hwio, bias))
 
 
 def conv3x3_launch(x: torch.Tensor, w_hwio: torch.Tensor, bias, relu: bool,
                    flip: bool = False) -> torch.Tensor:
-    """One launch of the kernel: conv3x3(x, w) (+ bias) (ReLU), or with
-    ``flip`` the adjoint conv3x3(x, tf32.flip_io(w)) that the backward's dx needs."""
-    check_cuda_f32("conv3x3_relu", x, w_hwio, *([bias] if bias is not None else []))
+    """One launch of the kernel of x's dtype: conv3x3(x, w) (+ bias) (ReLU), or
+    with ``flip`` the adjoint conv3x3(x, tf32.flip_io(w)) that the backward's dx
+    needs.  The parameters are float32 (or x's dtype); the bias goes to either
+    kernel as float32."""
+    dtype = check_cuda_operands("conv3x3_relu", x)
+    check_cuda_operands("conv3x3_relu", w_hwio, *([bias] if bias is not None else []))
     n, h, w, c = x.shape
     if tuple(w_hwio.shape) != (3, 3, c, c):
         raise ValueError(f"conv3x3_relu: weight {tuple(w_hwio.shape)} does not fit C={c}")
     if c % 64:
         raise ValueError(f"conv3x3_relu: the CUDA kernel takes C % 64 == 0, got C={c}")
-    wp = packed_weights(w_hwio, N_TILE, flip)
+    wp = packed_weights(w_hwio, N_TILE, flip, dtype)
+    b = None if bias is None else bias.float()
     y = torch.empty_like(x)
-    CONV3X3(x.data_ptr(), wp.data_ptr(), None if bias is None else bias.data_ptr(),
-            y.data_ptr(), n, h, w, c, int(relu))
+    by_dtype(dtype, CONV3X3, CONV3X3_BF16)(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
+                                           y.data_ptr(), n, h, w, c, int(relu))
     return y
 
 
@@ -76,9 +92,9 @@ class _Conv3x3Relu(torch.autograd.Function):
                 x.permute(0, 3, 1, 2), (w_hwio.shape[3], w_hwio.shape[2], 3, 3),
                 dz.permute(0, 3, 1, 2), padding=1,
             )
-            dw = dw_oihw.permute(2, 3, 1, 0)
+            dw = dw_oihw.permute(2, 3, 1, 0).to(w_hwio.dtype)
         if ctx.needs_input_grad[2]:
-            db = dz.sum(dim=(0, 1, 2))
+            db = dz.sum(dim=(0, 1, 2)).to(w_hwio.dtype)
         return dx, dw, db
 
 

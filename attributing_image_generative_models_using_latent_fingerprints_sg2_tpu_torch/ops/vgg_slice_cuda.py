@@ -5,17 +5,21 @@ intermediate ``relu1_1`` is never stored: the forward kernel keeps it in
 shared memory, and the backward kernel computes dx from (g, a2, x),
 recomputing conv1's sign.  The forward's 64 -> 64 conv and the backward's two
 adjoint convs run on the tensor cores (three-pass TF32 split, float32
-accuracy) from weights packed once per weight tensor by ``ops/tf32.py``.  dw
-and db are computed in plain PyTorch, and only when asked for.
+accuracy) from weights packed once per weight tensor by ``ops/tf32.py``.  A
+bfloat16 ``x`` goes to the bf16 variants (``vgg_slice1_fwd_bf16``,
+``vgg_slice1_bwd_bf16``): one pass of bf16 products with float32 sums, the
+float32 biases added before each rounding, ``relu1_1`` and dz1 rounded to bf16
+where the reference's TPU kernel rounds them.  dw and db are computed in plain
+PyTorch, and only when asked for.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._cuda import INT, PTR, Kernel, check_cuda_f32, register
+from ._cuda import INT, PTR, Kernel, by_dtype, check_cuda_operands, register
 from .tf32 import conv3x3_three_pass, flip_io, packed_weights
-from .vgg_cuda import conv3x3_plain
+from .vgg_cuda import conv3x3_relu_plain
 
 FWD_TILE = (8, 16)  # output tile (rows, columns) of the forward kernel (csrc/vgg_slice1.cu)
 BWD_TILE = 14       # dx tile of the backward kernel
@@ -30,11 +34,18 @@ SLICE1_BWD = register(Kernel(
     source="csrc/vgg_slice1.cu",
     replaces="attributing_image_generative_models_using_latent_fingerprints_sg2_tpu/ops/vgg_slice_pallas.py:349",
 ))
+SLICE1_FWD_BF16 = register(Kernel(
+    "vgg_slice1_fwd_bf16", "fp_vgg_slice1_fwd_bf16", SLICE1_FWD.argtypes[:-1], source=SLICE1_FWD.source,
+    replaces=SLICE1_FWD.replaces))
+SLICE1_BWD_BF16 = register(Kernel(
+    "vgg_slice1_bwd_bf16", "fp_vgg_slice1_bwd_bf16", SLICE1_BWD.argtypes[:-1], source=SLICE1_BWD.source,
+    replaces=SLICE1_BWD.replaces))
 
 
 def vgg_slice1_plain(x, w1, b1, w2, b2) -> torch.Tensor:
-    a1 = torch.relu(conv3x3_plain(x, w1, b1))
-    return torch.relu(conv3x3_plain(a1, w2, b2))
+    """The kernels' plain version; a bf16 x rounds relu1_1 and the output once
+    each, from float32 sums with float32 biases, as the bf16 kernels do."""
+    return conv3x3_relu_plain(conv3x3_relu_plain(x, w1, b1), w2, b2)
 
 
 def _check_shapes(x, w1, w2) -> None:
@@ -46,21 +57,28 @@ def _check_shapes(x, w1, w2) -> None:
 
 
 def slice1_forward_launch(x, w1, b1, w2, b2) -> torch.Tensor:
-    check_cuda_f32("vgg_slice1", x, w1, b1, w2, b2)
+    """One launch of the forward kernel of x's dtype; the parameters are float32
+    (or x's dtype), w1 goes in x's dtype and the biases as float32."""
+    dtype = check_cuda_operands("vgg_slice1", x)
+    check_cuda_operands("vgg_slice1", w1, b1, w2, b2)
     _check_shapes(x, w1, w2)
     n, h, w, _ = x.shape
     y = torch.empty((n, h, w, 64), device=x.device, dtype=x.dtype)
-    SLICE1_FWD(*(t.data_ptr() for t in (x, w1, b1, packed_weights(w2, 64), b2, y)), n, h, w)
+    args = (x, w1.to(dtype), b1.float(), packed_weights(w2, 64, dtype=dtype), b2.float(), y)
+    by_dtype(dtype, SLICE1_FWD, SLICE1_FWD_BF16)(*(t.data_ptr() for t in args), n, h, w)
     return y
 
 
 def slice1_backward_launch(g, a2, x, w1, b1, w2) -> torch.Tensor:
-    check_cuda_f32("vgg_slice1", g, a2, x, w1, b1, w2)
+    """One launch of the backward kernel of x's dtype: dx from (g, a2, x)."""
+    dtype = check_cuda_operands("vgg_slice1", g, a2, x)
+    check_cuda_operands("vgg_slice1", w1, b1, w2)
     _check_shapes(x, w1, w2)
-    w1fp, w2fp = packed_weights(w1, 8, flip=True), packed_weights(w2, 64, flip=True)
+    w1fp, w2fp = packed_weights(w1, 8, True, dtype), packed_weights(w2, 64, True, dtype)
     n, h, w, _ = x.shape
     dx = torch.empty_like(x)
-    SLICE1_BWD(*(t.data_ptr() for t in (g, a2, x, w1, b1, w1fp, w2fp, dx)), n, h, w)
+    args = (g, a2, x, w1.to(dtype), b1.float(), w1fp, w2fp, dx)
+    by_dtype(dtype, SLICE1_BWD, SLICE1_BWD_BF16)(*(t.data_ptr() for t in args), n, h, w)
     return dx
 
 

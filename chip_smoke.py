@@ -126,14 +126,43 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                uninterrupted, one metrics row a step; then ``cli.attribute
                --ckpt`` on the trained generator, its bit accuracy printed.
 
+bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
+2.  the launch-only rows of phase 2 again in bf16 at batch 2 and 16 (``_bf16``
+    names): each kernel within 0.03 * max|plain| of its plain bf16 version,
+    and (but the slice's backward, whose ReLU masks differ) within 0.03 of
+    max of the float32 plain version on the same (bf16) inputs, the
+    launch-only, plain and library times (the PyTorch calls in bf16; for the
+    slice two cuDNN convs + ReLU, autograd over them for its backward) and the
+    bf16 bound; the FIR second derivative once in bf16 against
+    the plain bf16 versions on the CPU (0.03 of max).
+3.  recovery in bf16: phase 3's tiny configuration and gates, ``dtype="bfloat16"``.
+5.  step16 -- the 16-chain 256px perceptual solve step at full width in the
+    turns float32, bf16, bf16, float32 (CUDA events, median of 5 steps a
+    turn), each dtype's peak memory, device-busy share and top device
+    operations (``torch.profiler``), and its launches per step, which must be
+    ``ops/roofline.py::step_launches`` of that dtype and 0 for the other
+    dtype's kernels.  attribute_bf16 -- ``cli.attribute --dtype bfloat16`` as
+    phase 5 runs it: finite losses, ``result.txt``, every bf16 kernel launched,
+    float32 kernels only inside ``pipeline.synthesize`` (the float32 renders
+    of the targets and the stored images); chain-steps/s and peak memory
+    beside phase 5's.
+12. the BigGAN-deep-256 16-chain step in bf16 (the reference widens the bf16 z
+    where it meets the class embedding, so its generator and the LPIPS on its
+    image stay float32; only the targets' features are bf16).
+13. studies_bf16 -- ``identification_point`` and ``model_attribution_point`` at
+    their defaults (bf16) on the tiny configuration, short, with launch
+    counts: float32 kernels only in the target renders, as in attribute_bf16.
+
 Then it prints the card's name and power limit, one JSON line describing
-each kernel (its launches on every path above: ``launches`` is phase 5's,
+each kernel (its launches on every path above: ``launches`` is phase 5's for
+a float32 kernel and the bf16 ``cli.attribute`` run's for a ``_bf16`` one,
 ``launches_training`` phase 14's timed steps), and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -146,6 +175,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PORT = "attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch"
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 TOL = 1e-4
+BF16_TOL = 0.03  # bf16 kernel vs its plain bf16 version: max|err| / max|plain| (the reference's bf16 kernel bound)
+BF16 = None  # name suffix of a kernel's bfloat16 variant: ops/roofline.py's BF16_SUFFIX, read in main()
 # the tiny converging configuration of the reference's end-to-end test
 TINY = dict(img_size=32, style_dim=64, n_mlp=3, channel_max=64)
 TINY_SEED = 1
@@ -231,10 +262,12 @@ def conv1_sign_keep(torch, vgg_cuda, x, w1, b1):
     """Mask over the slice's dx [N, H, W, 3]: False in the 3x3 neighbourhoods of
     pixels where some channel of conv1(x) + b1 is within float32 rounding (1e-5)
     of zero.  The backward kernel recomputes that sign in another summation
-    order than cuDNN's, so there the two [conv1 > 0] masks may differ."""
+    order than cuDNN's, so there the two [conv1 > 0] masks may differ.  conv1 is
+    summed in float32 from the values the kernel sees (a bf16 x with w1 rounded
+    to bf16)."""
     import torch.nn.functional as F
 
-    z1 = vgg_cuda.conv3x3_plain(x, w1, b1)
+    z1 = vgg_cuda.conv3x3_plain(x.float(), w1.to(x.dtype).float(), b1)
     near = (z1.abs().amin(dim=-1, keepdim=True) < 1e-5).float().permute(0, 3, 1, 2)
     near = F.max_pool2d(near, 3, stride=1, padding=1).permute(0, 2, 3, 1) > 0
     return ~near.expand(-1, -1, -1, 3)
@@ -309,19 +342,30 @@ def phase_kernels(torch, mods, disc_shapes):
     return per_kernel
 
 
-def launch_cases(torch, mods, n, rnd):
+def launch_cases(torch, mods, n, rnd, act=None):
     """Every main-path launch shape of every kernel at batch ``n``:
     (kernel, shape, kernel_fn, plain_fn, library_fn, counts, check), all on
     fixed inputs and without autograd.  ``library_fn`` is the PyTorch call
     that computes the same function; the port never calls it on the card.
     ``check`` is None or a function returning (kernel result, plain result,
-    mask of elements to compare or None)."""
+    mask of elements to compare or None).  ``act`` maps every activation input
+    (not the float32 parameters) after it is drawn: ``t.bfloat16()`` gives the
+    bf16 variants' cases (the library call in bf16 too), and the bound is
+    then counted in bf16."""
     import torch.nn.functional as F
 
     up_cuda, vgg_cuda, slice_cuda, upf, roof = mods
     k1 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)) * 4.0)
     kt = torch.tensor(k1, device="cuda")
+    disc = n == 16 and act is None  # the discriminator's rows: float32 only
+    if act is None:
+        act = lambda t: t  # noqa: E731
+    dt = act(torch.zeros(1, device="cuda")).dtype  # the kernels' dtype
+    dname = "bfloat16" if dt == torch.bfloat16 else "float32"
     cases = []
+
+    def arnd(*shape):
+        return act(rnd(*shape))
 
     def adjoint(ct, w):
         """conv3x3_plain's adjoint applied to ``ct``, by autograd (the conv is linear)."""
@@ -330,24 +374,24 @@ def launch_cases(torch, mods, n, rnd):
             return torch.autograd.grad(vgg_cuda.conv3x3_plain(x0, w), x0, ct)[0]
 
     for c, h in roof.BLUR4_SHAPES:
-        x = rnd(n, h + 1, h + 1, c)
-        wl = torch.outer(kt, kt).flip(0, 1).expand(c, 1, 4, 4).contiguous()
+        x = arnd(n, h + 1, h + 1, c)
+        wl = torch.outer(kt, kt).flip(0, 1).expand(c, 1, 4, 4).contiguous().to(dt)
         kf = lambda x=x: up_cuda.blur4_launch(x, k1[::-1], k1[::-1], (1, 1), (1, 1))
         pf = lambda x=x: up_cuda.blur4_plain(x, k1, k1, (1, 1), (1, 1))
         cases.append(("blur4", f"C{c}_H{h}", kf, pf,
                       lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=1, groups=c),
-                      roof.blur4(n, c, h, h), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+                      roof.blur4(n, c, h, h, dtype=dname), lambda kf=kf, pf=pf: (kf(), pf(), None)))
     for c, h in roof.BLUR4_SHAPES:
         # the backward's launch: the cotangent [n, h, h, c] through the same kernel with
         # unflipped taps and pads (3 - 1, 3 - 1); blur4_plain flips the taps it is given
-        x = rnd(n, h, h, c)
-        wl = torch.outer(kt, kt).expand(c, 1, 4, 4).contiguous()
+        x = arnd(n, h, h, c)
+        wl = torch.outer(kt, kt).expand(c, 1, 4, 4).contiguous().to(dt)
         kf = lambda x=x: up_cuda.blur4_launch(x, k1, k1, (2, 2), (2, 2))
         pf = lambda x=x: up_cuda.blur4_plain(x, k1[::-1], k1[::-1], (2, 2), (2, 2))
         cases.append(("blur4", f"C{c}_H{h}_adj", kf, pf,
                       lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=2, groups=c),
-                      roof.blur4(n, c, h + 1, h + 1, (2, 2)), lambda kf=kf, pf=pf: (kf(), pf(), None)))
-    if n == 16:
+                      roof.blur4(n, c, h + 1, h + 1, (2, 2), dname), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+    if disc:
         # the discriminator's blurs at full width (batch 16) and their adjoints: pads p on
         # [n, r, r, c] and, for the adjoint, pads 3 - p on the forward's output
         k0 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)))
@@ -365,60 +409,71 @@ def launch_cases(torch, mods, n, rnd):
                 cases.append(("blur4", label, kf, pf,
                               lambda x=x, wl=wl, c=c, q=q: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=q, groups=c),
                               counts[label], lambda kf=kf, pf=pf: (kf(), pf(), None)))
-    wl3 = torch.outer(kt, kt).expand(3, 1, 4, 4).contiguous()
+    wl3 = torch.outer(kt, kt).expand(3, 1, 4, 4).contiguous().to(dt)
     for h in roof.UPBLUR4_SHAPES:
-        x, rgb = rnd(n, h, h, 3), rnd(n, 2 * h, 2 * h, 3)
+        x, rgb = arnd(n, h, h, 3), arnd(n, 2 * h, 2 * h, 3)
         kf = lambda x=x, rgb=rgb: up_cuda.upblur4_launch(x, k1, rgb)
-        pf = lambda x=x, rgb=rgb: rgb + up_cuda.upblur4_plain(x, k1)
+        pf = lambda x=x, rgb=rgb: up_cuda.upblur4_add_plain(rgb, x, k1)
         cases.append(("upblur4", f"C3_H{h}", kf, pf,
                       lambda x=x, rgb=rgb: F.conv_transpose2d(x.permute(0, 3, 1, 2), wl3, stride=2, padding=1,
                                                               groups=3) + rgb.permute(0, 3, 1, 2),
-                      roof.upblur4(n, 3, h, h, fused=True), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+                      roof.upblur4(n, 3, h, h, fused=True, dtype=dname), lambda kf=kf, pf=pf: (kf(), pf(), None)))
     for h in roof.UPBLUR4_SHAPES:
-        g = rnd(n, 2 * h, 2 * h, 3)
+        g = arnd(n, 2 * h, 2 * h, 3)
 
         def plain_adjoint(g=g, h=h):
             """upblur4_plain's adjoint applied to g, by autograd (the FIR is linear)."""
             with torch.enable_grad():
-                x0 = torch.zeros((n, h, h, 3), device="cuda").requires_grad_(True)
+                x0 = torch.zeros((n, h, h, 3), device="cuda", dtype=dt).requires_grad_(True)
                 return torch.autograd.grad(up_cuda.upblur4_plain(x0, k1), x0, g)[0]
 
         kf = lambda g=g: up_cuda.upblur4_adjoint_launch(g, k1)
         cases.append(("upblur4_adj", f"C3_H{h}", kf, lambda g=g: up_cuda.upblur4_adjoint_plain(g, k1),
                       lambda g=g: F.conv2d(g.permute(0, 3, 1, 2), wl3, stride=2, padding=1, groups=3),
-                      roof.upblur4_adj(n, 3, h, h), lambda kf=kf, pa=plain_adjoint: (kf(), pa(), None)))
+                      roof.upblur4_adj(n, 3, h, h, dname), lambda kf=kf, pa=plain_adjoint: (kf(), pa(), None)))
     for c, h, _ in roof.CONV3X3_SHAPES:
         w, b = rnd(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5), rnd(c, scale=0.1)
-        x = rnd(n, h, h, c)
+        x = arnd(n, h, h, c)
         # the adjoint taps (spatial flip, in/out swapped) for the TIMES of the plain and the
         # library call; the dx check below takes the adjoint from autograd instead
         wf = w.flip(0, 1).transpose(2, 3).contiguous()
-        w_oihw, wf_oihw = (t.permute(3, 2, 0, 1).contiguous() for t in (w, wf))
+        w_oihw, wf_oihw = (t.permute(3, 2, 0, 1).contiguous().to(dt) for t in (w, wf))
         kf = lambda x=x, w=w, b=b: vgg_cuda.conv3x3_launch(x, w, b, relu=True)
         pf = lambda x=x, w=w, b=b: vgg_cuda.conv3x3_relu_plain(x, w, b)
         cases.append(("conv3x3_relu", f"C{c}_H{h}", kf, pf,
-                      lambda x=x, wo=w_oihw, b=b: torch.relu(F.conv2d(x.permute(0, 3, 1, 2), wo, b, padding=1)),
-                      roof.conv3x3(n, h, h, c), lambda kf=kf, pf=pf: (kf(), pf(), None)))
+                      lambda x=x, wo=w_oihw, b=b.to(dt): torch.relu(F.conv2d(x.permute(0, 3, 1, 2), wo, b, padding=1)),
+                      roof.conv3x3(n, h, h, c, dname), lambda kf=kf, pf=pf: (kf(), pf(), None)))
         kd = lambda x=x, w=w: vgg_cuda.conv3x3_launch(x, w, None, relu=False, flip=True)
         pd = lambda x=x, wf=wf: vgg_cuda.conv3x3_plain(x, wf)
         cases.append(("conv3x3_relu", f"C{c}_H{h}_dx", kd, pd,
                       lambda x=x, wo=wf_oihw: F.conv2d(x.permute(0, 3, 1, 2), wo, None, padding=1),
-                      roof.conv3x3(n, h, h, c), lambda kd=kd, x=x, w=w: (kd(), adjoint(x, w), None)))
+                      roof.conv3x3(n, h, h, c, dname), lambda kd=kd, x=x, w=w: (kd(), adjoint(x, w), None)))
     ws = (rnd(3, 3, 3, 64, scale=(2.0 / 27) ** 0.5), rnd(64, scale=0.1),
           rnd(3, 3, 64, 64, scale=(2.0 / 576) ** 0.5), rnd(64, scale=0.1))
     hs = roof.SLICE1_H
-    x, cot = rnd(n, hs, hs, 3), rnd(n, hs, hs, 64)
+    x, cot = arnd(n, hs, hs, 3), arnd(n, hs, hs, 64)
     kf, pf = (lambda: slice_cuda.slice1_forward_launch(x, *ws)), (lambda: slice_cuda.vgg_slice1_plain(x, *ws))
+    # the library call: two cuDNN convs with their ReLUs in the kernels' dtype (NCHW views of
+    # the NHWC tensors), and autograd over them for the backward
+    wl = [t.permute(3, 2, 0, 1).contiguous().to(dt) if t.dim() == 4 else t.to(dt) for t in ws]
+
+    def library_slice(v):
+        return torch.relu(F.conv2d(torch.relu(F.conv2d(v.permute(0, 3, 1, 2), wl[0], wl[1], padding=1)),
+                                   wl[2], wl[3], padding=1))
+
     # every element is compared: a ReLU output needs no mask
-    cases.append(("vgg_slice1_fwd", f"C3_H{hs}", kf, pf, pf, roof.slice1_fwd(n, hs, hs),
+    cases.append(("vgg_slice1_fwd", f"C3_H{hs}", kf, pf, lambda: library_slice(x), roof.slice1_fwd(n, hs, hs, dname),
                   lambda: (kf(), pf(), None)))
-    xr = x.detach().requires_grad_(True)
+    xr, xl = x.detach().requires_grad_(True), x.detach().requires_grad_(True)
     with torch.enable_grad():
-        yp = slice_cuda.vgg_slice1_plain(xr, *ws)
+        yp, yl = slice_cuda.vgg_slice1_plain(xr, *ws), library_slice(xl)
     a2 = yp.detach()
 
     def plain_bwd():
         return torch.autograd.grad(yp, xr, cot, retain_graph=True)[0]
+
+    def library_bwd():
+        return torch.autograd.grad(yl, xl, cot.permute(0, 3, 1, 2), retain_graph=True)[0]
 
     def kernel_bwd():
         return slice_cuda.slice1_backward_launch(cot, a2, x, ws[0], ws[1], ws[2])
@@ -430,55 +485,86 @@ def launch_cases(torch, mods, n, rnd):
         # 3x3 neighbourhoods in dx are left out, and counted.
         return kernel_bwd(), plain_bwd(), conv1_sign_keep(torch, vgg_cuda, x, ws[0], ws[1])
 
-    cases.append(("vgg_slice1_bwd", f"C3_H{hs}", kernel_bwd, plain_bwd, plain_bwd,
-                  roof.slice1_bwd(n, hs, hs), check_bwd))
+    cases.append(("vgg_slice1_bwd", f"C3_H{hs}", kernel_bwd, plain_bwd, library_bwd,
+                  roof.slice1_bwd(n, hs, hs, dname), check_bwd))
     return cases
 
 
 def phase_launch_times(torch, mods, per_kernel):
     """Launch-only times at batch 2 and 16 beside bound, plain and library
     times; the batch-16 sums over a kernel's shapes go into ``per_kernel``,
-    those of its adjoint launches (``_adj``, ``_dx``) under ``adjoint_`` keys."""
+    those of its adjoint launches (``_adj``, ``_dx``) under ``adjoint_`` keys.
+    Then the same in bf16 (``_bf16`` names): each bf16 kernel within BF16_TOL
+    of max|plain| of its plain bf16 version, and within BF16_TOL of the max of
+    the float32 plain version on the same bf16-rounded inputs (the bf16
+    rounding is all that parts them).  The slice's backward is held to the
+    float32 version only in print: its two ReLU masks, recomputed from values
+    rounded to bf16 and from float32 ones, differ by whole terms wherever a
+    pre-activation is within rounding of zero, and at the main path's shapes
+    that is most 5x5 neighbourhoods."""
     roof = mods[-1]
-    for n in (2, 16):
-        g = torch.Generator().manual_seed(100 + n)
+    bf = lambda t: t.bfloat16()  # noqa: E731
+    for dtype in ("float32", "bfloat16"):
+        for n in (2, 16):
+            def rnd_from(seed):
+                g = torch.Generator().manual_seed(seed)
+                return lambda *shape, scale=1.0: (torch.randn(shape, generator=g) * scale).to("cuda")
 
-        def rnd(*shape, scale=1.0):
-            return (torch.randn(shape, generator=g) * scale).to("cuda")
+            with torch.no_grad():
+                if dtype == "float32":
+                    cases = launch_cases(torch, mods, n, rnd_from(100 + n))
+                    refs = [None] * len(cases)
+                else:
+                    # the same draws twice: the bf16 cases, and float32 ones on the bf16-rounded inputs
+                    cases = launch_cases(torch, mods, n, rnd_from(200 + n), act=bf)
+                    refs = launch_cases(torch, mods, n, rnd_from(200 + n), act=lambda t: t.bfloat16().float())
+                for (name, shape, kfn, pfn, lfn, counts, chk), ref in zip(cases, refs):
+                    kname = name + (BF16 if dtype == "bfloat16" else "")
+                    line = {"phase": "launch", "kernel": kname, "shape": shape, "batch": n,
+                            "ms": median_ms(torch, kfn), "plain_ms": median_ms(torch, pfn),
+                            "library_ms": median_ms(torch, lfn), **counts}
+                    if chk is not None:
+                        k, p, keep = chk()
+                        torch.cuda.synchronize()
+                        diff = (k.float() - p.float()).abs()
+                        if keep is not None:
+                            line["left_out"] = int((~keep).sum().item())
+                            check(line["left_out"] <= 0.01 * keep.numel(),
+                                  f"{kname} {shape}: {line['left_out']} of {keep.numel()} values left out")
+                            diff = diff * keep
+                        err, pmax = diff.max().item(), p.float().abs().max().item()
+                        check(bool(torch.isfinite(k).all()), f"{kname} {shape}: non-finite result")
+                        if dtype == "float32":
+                            scale = max(1.0, pmax)
+                            check(err <= TOL * scale,
+                                  f"{kname} {shape} batch {n}: error {err:.3e} > {TOL} * {scale:.3e}")
+                        else:
+                            check(k.dtype == torch.bfloat16 and err < BF16_TOL * pmax,
+                                  f"{kname} {shape} batch {n}: error {err:.3e} >= {BF16_TOL} * {pmax:.3e}")
+                            rk, rp, rkeep = ref[-1]()
+                            rd = (k.float() - rp.float()).abs()
+                            err32 = (rd * rkeep if rkeep is not None else rd).max().item()
+                            line["max_abs_err_vs_float32_plain"] = err32
+                            line["max_abs_float32_plain"] = rp.abs().max().item()
+                            check(name == "vgg_slice1_bwd" or err32 < BF16_TOL * line["max_abs_float32_plain"],
+                                  f"{kname} {shape} batch {n}: {err32:.3e} from the float32 plain version")
+                        line["max_abs_err"] = err
+                    emit(line)
+                    agg = per_kernel.setdefault(("launch", kname), {"bound_by": {}, "err": 0.0})
+                    agg["err"] = max(agg["err"], line.get("max_abs_err", 0.0))
+                    if n == 16:
+                        adjoint = shape.endswith(("_dx", "_adj"))
+                        prefix = ("disc_" if shape.startswith("D_") else "") + ("adjoint_" if adjoint else "")
+                        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                            agg[prefix + key] = agg.get(prefix + key, 0.0) + line[key]
+                        if not prefix:
+                            by = agg["bound_by"]
+                            by[line["bound_by"]] = by.get(line["bound_by"], 0.0) + line["bound_ms"]
+            del cases, refs
+            torch.cuda.empty_cache()
 
-        with torch.no_grad():
-            for name, shape, kfn, pfn, lfn, counts, chk in launch_cases(torch, mods, n, rnd):
-                line = {"phase": "launch", "kernel": name, "shape": shape, "batch": n,
-                        "ms": median_ms(torch, kfn), "plain_ms": median_ms(torch, pfn),
-                        "library_ms": median_ms(torch, lfn), **counts}
-                if chk is not None:
-                    k, p, keep = chk()
-                    torch.cuda.synchronize()
-                    diff = (k - p).abs()
-                    if keep is not None:
-                        line["left_out"] = int((~keep).sum().item())
-                        check(line["left_out"] <= 0.01 * keep.numel(),
-                              f"{name} {shape}: {line['left_out']} of {keep.numel()} values left out")
-                        diff = diff * keep
-                    err, scale = diff.max().item(), max(1.0, p.abs().max().item())
-                    check(bool(torch.isfinite(k).all()), f"{name} {shape}: non-finite result")
-                    check(err <= TOL * scale,
-                          f"{name} {shape} batch {n}: error {err:.3e} > {TOL} * {scale:.3e}")
-                    line["max_abs_err"] = err
-                emit(line)
-                agg = per_kernel.setdefault(("launch", name), {"bound_by": {}, "err": 0.0})
-                agg["err"] = max(agg["err"], line.get("max_abs_err", 0.0))
-                if n == 16:
-                    adjoint = shape.endswith(("_dx", "_adj"))
-                    prefix = ("disc_" if shape.startswith("D_") else "") + ("adjoint_" if adjoint else "")
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                        agg[prefix + key] = agg.get(prefix + key, 0.0) + line[key]
-                    if not prefix:
-                        by = agg["bound_by"]
-                        by[line["bound_by"]] = by.get(line["bound_by"], 0.0) + line["bound_ms"]
 
-
-def phase_recovery(torch, port):
+def phase_recovery(torch, port, dtype="float32"):
     C, pl, attr = port["config"], port["pipeline"], port["attribute"]
     mcfg = C.ModelConfig(**TINY)
     fpcfg = C.FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000)
@@ -489,12 +575,17 @@ def phase_recovery(torch, port):
     check(pipe.device.type == "cuda" and pipe.noise[0].is_cuda, f"default device {pipe.device}")
     imgs, _, _, bits, _ = pl.generate_fingerprinted(pipe, 3, torch.Generator().manual_seed(TINY_SEED + 1))
     t0 = time.time()
+    port["_cuda"].reset_launches()
     res = attr.attribute(pipe.gen_params, None, pipe.basis, pipe.noise, imgs, mcfg=mcfg, acfg=acfg,
-                         generator=torch.Generator().manual_seed(TINY_SEED + 2))
+                         generator=torch.Generator().manual_seed(TINY_SEED + 2), dtype=dtype)
     torch.cuda.synchronize()
+    if dtype == "bfloat16":
+        for name in ("blur4", "upblur4", "upblur4_adj"):
+            check(port["_cuda"].KERNELS[name + BF16].launches > 0 and port["_cuda"].KERNELS[name].launches == 0,
+                  f"the bf16 mse solve did not run {name + BF16} alone")
     ev = attr.evaluate_attribution(res, bits)
     accs = [float(a) for a in ev["bit_acc"].cpu()]
-    emit({"phase": "recovery", "bit_acc": accs, "mean_bit_acc": sum(accs) / 3,
+    emit({"phase": "recovery", "dtype": dtype, "bit_acc": accs, "mean_bit_acc": sum(accs) / 3,
           "exact": sum(a >= 1.0 for a in accs), "loss": [float(v) for v in res.loss.cpu()],
           "seconds": time.time() - t0})
     check(sum(accs) / 3 > 0.85, f"mean bit accuracy {sum(accs) / 3:.3f} <= 0.85")
@@ -528,8 +619,46 @@ def phase_generate(torch, port):
     emit({"phase": "generate", "pngs": sum(len(v) for v in pngs.values()), "seconds": time.time() - t0})
 
 
-def check_all_launched(counts, path: str) -> None:
-    for name, n in counts.items():
+def of_dtype(counts, dtype: str = "float32"):
+    """The entries of ``counts`` (by kernel name) that belong to ``dtype``'s kernels."""
+    return {k: v for k, v in counts.items() if k.endswith(BF16) == (dtype == "bfloat16")}
+
+
+@contextlib.contextmanager
+def renders_counted(port):
+    """Inside the block, the launches made within ``pipeline.synthesize`` (the
+    float32 renders of targets and stored images, as in the reference) are
+    summed by kernel into the yielded dict."""
+    pl, cuda_mod = port["pipeline"], port["_cuda"]
+    synthesize, inside = pl.synthesize, {name: 0 for name in cuda_mod.KERNELS}
+
+    def counted(*args, **kwargs):
+        before = cuda_mod.launch_counts()
+        try:
+            return synthesize(*args, **kwargs)
+        finally:
+            for name, n in cuda_mod.launch_counts().items():
+                inside[name] += n - before[name]
+
+    pl.synthesize = counted
+    try:
+        yield inside
+    finally:
+        pl.synthesize = synthesize
+
+
+def check_bf16_solve(counts, renders, path: str, need=None) -> None:
+    """A bf16 run's launches: its float32 kernels launched only by its float32
+    renders (``renders_counted``), which launch no bf16 kernel; every bf16
+    kernel in ``need`` (all of them if None) launched."""
+    check(of_dtype(counts) == of_dtype(renders) and not any(of_dtype(renders, "bfloat16").values()),
+          f"{path}: float32 launches {of_dtype(counts)} outside its float32 renders {renders}")
+    for name, n in of_dtype(counts, "bfloat16").items():
+        check(n > 0 or (need is not None and name not in need), f"kernel {name} was not launched by {path}")
+
+
+def check_all_launched(counts, path: str, dtype: str = "float32") -> None:
+    for name, n in of_dtype(counts, dtype).items():
         check(n > 0, f"kernel {name} was not launched by {path}")
 
 
@@ -554,7 +683,7 @@ def phase_attribute(torch, port, gpu):
                                       "--save_dir", save + "_half"])
     half = cuda_mod.launch_counts()
     per_step = {}
-    for name, n in counts.items():
+    for name, n in of_dtype(counts).items():
         d, m = divmod(n - half[name], steps - steps // 2)
         check(m == 0, f"kernel {name}: {n} and {half[name]} launches over {steps} and {steps // 2} steps")
         want = port["roof"].LAUNCHES_PER_STEP[name]
@@ -567,14 +696,103 @@ def phase_attribute(torch, port, gpu):
     check_all_launched(counts, "the plain full-width solve")
     # 8 square convs in two orientations + the slice's w2 forward and its two adjoint convs, once each
     check(packs <= 19, f"{packs} weight packings over {steps} steps: weights are packed per call")
-    emit({"phase": "attribute", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512,
-          "loss": "perceptual", "samples": samples, "restarts": starts, "steps": steps,
-          "solve_seconds": r.solve_seconds, "steps_per_s": steps / r.solve_seconds,
-          "chain_steps_per_s": steps * r.chains / r.solve_seconds,
-          "max_memory_allocated_bytes": peak, "losses": r.losses, "bit_acc": r.bit_accs,
-          "launches": counts, "launches_half_run": half, "launches_per_step": per_step,
-          "weight_packings": packs, "gpu": gpu})
-    return counts, per_step
+    line = {"phase": "attribute", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512,
+            "loss": "perceptual", "samples": samples, "restarts": starts, "steps": steps,
+            "solve_seconds": r.solve_seconds, "steps_per_s": steps / r.solve_seconds,
+            "chain_steps_per_s": steps * r.chains / r.solve_seconds,
+            "max_memory_allocated_bytes": peak, "losses": r.losses, "bit_acc": r.bit_accs,
+            "launches": counts, "launches_half_run": half, "launches_per_step": per_step,
+            "weight_packings": packs, "gpu": gpu}
+    emit(line)
+    return counts, per_step, line
+
+
+def phase_step16(torch, port, gpu):
+    """The 16-chain 256px perceptual solve step (4 targets x 4 restarts, full
+    width) in float32 and in bf16, timed in the turns f32, bf16, bf16, f32
+    (CUDA events, median of 5 steps after 2 warm-up steps a turn); for each
+    dtype its peak memory, its launches per step (the dtype's kernels exactly
+    ``roof.step_launches``, the other dtype's 0) and its device time by
+    operation over 3 profiled steps, whose sum over the median step time is the
+    device-busy share."""
+    C, pl, attr, cuda_mod, roof = port["config"], port["pipeline"], port["attribute"], port["_cuda"], port["roof"]
+    mcfg = C.ModelConfig(img_size=256)
+    pipe = pl.build_pipeline(mcfg, C.FingerprintConfig(key_len=64, shift=448),
+                             generator=torch.Generator().manual_seed(0))
+    targets = torch.clamp(pl.generate_fingerprinted(pipe, 4, torch.Generator().manual_seed(1))[0], -1.0, 1.0)
+    acfg = C.AttributionConfig(steps=20, n_starts=4, loss="perceptual")
+    alpha0 = torch.as_tensor(port["lhs"].lhs_alpha_init_batch(4, 4, pipe.basis.sigma_rest,
+                                                              torch.Generator().manual_seed(2)),
+                             dtype=torch.float32).cuda()
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        feats, _ = attr._targets_for_loss(pipe.lpips_params, targets, acfg, dtype)
+        steps[dtype] = attr.make_attribution_step(pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, mcfg,
+                                                  acfg, feats, None, dtype=dtype)[0]
+    holder = {}
+
+    def one(dtype):
+        holder[dtype], per = steps[dtype](holder[dtype])
+        return per
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        holder[dtype] = attr.init_state(alpha0, torch.zeros((4, 4, 64), device="cuda"))
+        one(dtype)
+        torch.cuda.synchronize()
+        cuda_mod.reset_launches()
+        per = one(dtype)
+        torch.cuda.synchronize()
+        counts = cuda_mod.launch_counts()
+        other = "float32" if dtype == "bfloat16" else "bfloat16"
+        want = roof.step_launches(dtype)
+        check(of_dtype(counts, dtype) == want, f"{dtype} step launches {of_dtype(counts, dtype)}, expected {want}")
+        check(all(v == 0 for v in of_dtype(counts, other).values()), f"{dtype} step launched {other} kernels: {counts}")
+        check(bool(torch.isfinite(per).all()), f"{dtype} step: non-finite loss")
+        out[dtype] = {"launches_per_step": of_dtype(counts, dtype), "loss_mean": float(per.mean()), "ms": []}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[dtype]["ms"].append(median_ms(torch, lambda: one(dtype), reps=5, warmup=2))
+        out[dtype]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    for dtype in ("float32", "bfloat16"):
+        by_kernel = device_kernel_ms(torch, lambda: one(dtype), calls=3)
+        busy = sum(by_kernel.values())
+        ms = statistics.median(out[dtype]["ms"])
+        out[dtype].update({"ms_median": ms, "chain_steps_per_s": 16e3 / ms, "device_busy_ms": busy,
+                           "device_busy_share": busy / ms,
+                           "device_ms_top12": [[k[:90], v] for k, v in
+                                               sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]]})
+    emit({"phase": "step16", "img_size": 256, "style_dim": 512, "channel_max": 512, "chains": 16, "loss": "perceptual",
+          **out, "bf16_speedup": out["float32"]["ms_median"] / out["bfloat16"]["ms_median"], "gpu": gpu})
+    return out["bfloat16"]["launches_per_step"]
+
+
+def phase_attribute_bf16(torch, port, gpu, f32_line):
+    """``cli.attribute --dtype bfloat16`` as phase 5 runs it (full width,
+    perceptual, 2 samples x 4 restarts, 20 steps)."""
+    cuda_mod = port["_cuda"]
+    steps, samples, starts = 20, 2, 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_mod.reset_launches()
+    with renders_counted(port) as renders:
+        r = port["cli_attribute"].run(FULL + ["--loss", "perceptual", "--sample_size", str(samples), "--n",
+                                              str(starts), "--steps", str(steps), "--dtype", "bfloat16",
+                                              "--save_dir", os.path.join(OUT, "attribute_bf16")])
+    counts = cuda_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(os.path.exists(os.path.join(r.run_dir, "result.txt")), "cli.attribute --dtype bfloat16: no result.txt")
+    check(len(r.bit_accs) == samples and all(v == v and abs(v) < float("inf") for v in r.losses),
+          f"rows {r.bit_accs}, losses {r.losses}")
+    check_bf16_solve(counts, renders, "cli.attribute --dtype bfloat16")
+    emit({"phase": "attribute_bf16", "img_size": 256, "loss": "perceptual", "dtype": "bfloat16", "samples": samples,
+          "restarts": starts, "steps": steps, "solve_seconds": r.solve_seconds,
+          "chain_steps_per_s": steps * r.chains / r.solve_seconds, "max_memory_allocated_bytes": peak,
+          "float32_chain_steps_per_s": f32_line["chain_steps_per_s"],
+          "float32_max_memory_allocated_bytes": f32_line["max_memory_allocated_bytes"],
+          "losses": r.losses, "bit_acc": r.bit_accs, "launches": counts, "gpu": gpu})
+    return counts
 
 
 def phase_attacks(torch, port):
@@ -758,7 +976,7 @@ def phase_encoder(torch, port, gpu):
     check(curve.shape == (steps,) and bool(torch.isfinite(curve).all()), "non-finite encoder loss")
     first, last = float(curve[:10].mean()), float(curve[-20:].mean())
     check(last < first, f"encoder loss did not fall: first 10 {first:.4f}, last 20 {last:.4f}")
-    for name in ("blur4", "upblur4"):
+    for name in ("blur4_bf16", "upblur4_bf16"):  # the render goes through a bf16 w+
         check(counts[name] > 0, f"kernel {name} was not launched by encoder training")
 
     # where a step's device time goes: the render (generator forward + Jpeg) vs the
@@ -817,7 +1035,6 @@ def phase_encoder(torch, port, gpu):
 
 def phase_attribute_encoder(torch, port, gpu):
     """(b) ``cli.attribute --init encoder`` at full width on the Jpeg channel, attack-aware."""
-    import contextlib
     import io
 
     cuda_mod = port["_cuda"]
@@ -1123,6 +1340,25 @@ def phase_biggan(torch, port, gpu):
     peak16 = torch.cuda.max_memory_allocated()
     by_kernel = device_kernel_ms(torch, one_step, calls=2)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    # the same step in bf16: the targets' features in bf16, the generator (its z widened at
+    # the class embedding, as in the reference) and the estimate's LPIPS in float32
+    feats16, _ = attr._targets_for_loss(pipe.lpips_params, targets, acfg, "bfloat16")
+    step16, _ = attr.make_attribution_step(pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, mcfg, acfg,
+                                           feats16, None, dtype="bfloat16", **pl.solver_kwargs(pipe))
+    holder16 = {"state": attr.init_state(alpha0, torch.zeros((4, 4, 32), device=pipe.device))}
+
+    def one_step16():
+        holder16["state"], per = step16(holder16["state"])
+        return per
+
+    one_step16()
+    torch.cuda.synchronize()
+    cuda_mod.reset_launches()
+    per16 = one_step16()
+    torch.cuda.synchronize()
+    bf16_launches = cuda_mod.launch_counts()
+    check(bool(torch.isfinite(per16).all()), "BigGAN bf16 step: non-finite loss")
+    bf16_step_ms = median_ms(torch, one_step16, reps=5, warmup=1)
     cuda_mod.reset_launches()
     with torch.no_grad():
         gen_ms = median_ms(torch, lambda: pl.generate_fingerprinted(pipe, 16, g), reps=5, warmup=1)
@@ -1140,6 +1376,7 @@ def phase_biggan(torch, port, gpu):
                             "chain_steps_per_s": r.chain_steps / r.solve_seconds, "losses": r.losses,
                             "bit_acc": r.bit_accs, "max_memory_allocated_bytes": peak_cli},
           "step16_ms": step_ms, "step16_chain_steps_per_s": 16e3 / step_ms,
+          "step16_bf16_ms": bf16_step_ms, "step16_bf16_launches_per_step": bf16_launches,
           "step16_max_memory_allocated_bytes": peak16, "step16_device_busy_ms": sum(by_kernel.values()),
           "step16_device_ms_top15": [[k[:90], v] for k, v in top], "launches": counts, "gpu": gpu})
 
@@ -1227,6 +1464,49 @@ def phase_model_attribution(torch, port, gpu):
     return counts
 
 
+def phase_studies_bf16(torch, port, gpu):
+    """``identification_point`` and ``model_attribution_point`` at their
+    defaults (bfloat16, as in the reference) on the tiny configuration, with
+    few steps: records complete, the solves' bf16 FIR kernels launched (mse
+    solves run no LPIPS kernel), float32 kernels only in the target renders."""
+    import importlib
+
+    C, pl, cuda_mod = port["config"], port["pipeline"], port["_cuda"]
+    ident = importlib.import_module(f"{PORT}.eval.identification")
+    study = importlib.import_module(f"{PORT}.eval.model_attribution_study")
+    fp = C.FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000)
+    pipes = [pl.build_pipeline(C.ModelConfig(**TINY), fp, generator=torch.Generator().manual_seed(s), want_lpips=False)
+             for s in (0, 100, 777)]
+    cuda_mod.reset_launches()
+    t0 = time.time()
+    with renders_counted(port) as ident_renders:
+        rec = ident.identification_point(pipes[0], key_len=8, sigma=1.0, shift=56, min_distance=3,
+                                         registry_sizes=(4, 8), samples=4, steps=30, n_starts=4, clip_targets=False)
+    torch.cuda.synchronize()
+    ident_seconds, ident_counts = time.time() - t0, cuda_mod.launch_counts()
+    cuda_mod.reset_launches()
+    t0 = time.time()
+    with renders_counted(port) as study_renders:
+        mrec = study.model_attribution_point({"a": pipes[0], "b": pipes[1]}, {"held": pipes[2]}, key_len=8,
+                                             sigma=1.0, samples_per_model=2, steps=30, n_starts=4, chunk_samples=6,
+                                             clip_targets=False)
+    torch.cuda.synchronize()
+    study_seconds, study_counts = time.time() - t0, cuda_mod.launch_counts()
+    need = [name + BF16 for name in ("blur4", "upblur4", "upblur4_adj")]
+    check_bf16_solve(ident_counts, ident_renders, "identification_point", need)
+    check_bf16_solve(study_counts, study_renders, "model_attribution_point", need)
+    check([r["registry_size"] for r in rec["by_registry_size"]] == [4, 8], "identification record")
+    check(mrec["n_eval_in_dist"] == 2, "model attribution record")
+    emit({"phase": "studies_bf16", "dtype": "bfloat16", "steps": 30,
+          "identification": {"mean_bit_acc": rec["mean_bit_acc"], "by_registry_size": rec["by_registry_size"],
+                             "seconds": ident_seconds, "launches": of_dtype(ident_counts, "bfloat16")},
+          "model_attribution": {"decision_acc": mrec["decision_acc"], "open_set_threshold": mrec["open_set_threshold"],
+                                "open_set_auc": mrec["open_set_auc"], "seconds": study_seconds,
+                                "launches": of_dtype(study_counts, "bfloat16")},
+          "gpu": gpu})
+    return study_counts
+
+
 def second_derivative(torch, fn, x, c):
     """d/dx sum(g^2) with g = d/dx sum(tanh(fn(x)) * c): a gradient of a
     gradient through ``fn``, as the R1 penalty takes one through D's blurs."""
@@ -1252,7 +1532,7 @@ def phase_second_derivative(torch, mods, disc_shapes):
             cases.append((f"blur4 D_C{c}_R{r}_p{p}{p}", lambda v, p=p: up_cuda.blur4(v, k0, k0, (p, p), (p, p)),
                           torch.randn((2, r, r, c), generator=g), torch.randn((2, o, o, c), generator=g)))
     rgb = torch.randn((2, 256, 256, 3), generator=g)
-    cases.append(("upblur4 C3_H128", lambda v: up_cuda.upblur4_add(rgb.to(v.device), v, k1),
+    cases.append(("upblur4 C3_H128", lambda v: up_cuda.upblur4_add(rgb.to(v.device, v.dtype), v, k1),
                   torch.randn((2, 128, 128, 3), generator=g), torch.randn((2, 256, 256, 3), generator=g)))
     for label, fn, x, c in cases:
         want = second_derivative(torch, fn, x, c)
@@ -1261,6 +1541,16 @@ def phase_second_derivative(torch, mods, disc_shapes):
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite second derivative")
         check(err <= TOL * scale, f"{label}: second derivative error {err:.3e} > {TOL} * {scale:.3e}")
         emit({"phase": "second_derivative", "case": label, "batch": 2, "max_abs_err": err, "scale": scale})
+    # once in bf16: the widest discriminator blur and the ToRGB skip, the bf16 kernels
+    # against the plain bf16 versions on the CPU (each output rounded once on both sides)
+    for label, fn, x, c in (cases[0], cases[-1]):
+        xb, cb = x.bfloat16(), c.bfloat16()
+        want = second_derivative(torch, fn, xb, cb).float()
+        got = second_derivative(torch, fn, xb.cuda(), cb.cuda()).cpu()
+        err, scale = (got.float() - want).abs().max().item(), want.abs().max().item()
+        check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()), f"{label} bf16: second derivative")
+        check(err < BF16_TOL * scale, f"{label} bf16: second derivative error {err:.3e} >= {BF16_TOL} * {scale:.3e}")
+        emit({"phase": "second_derivative", "case": label + BF16, "batch": 2, "max_abs_err": err, "scale": scale})
 
 
 def phase_train(torch, port, gpu):
@@ -1285,7 +1575,8 @@ def phase_train(torch, port, gpu):
         gan.run_steps(state, seed, 1, mcfg, tcfg)
         per_step[label] = cuda_mod.launch_counts()
         want = roof.train_launches(256, label == "r1")
-        check(per_step[label] == want, f"training step ({label}) launched {per_step[label]}, expected {want}")
+        check(of_dtype(per_step[label]) == want and not any(of_dtype(per_step[label], "bfloat16").values()),
+              f"training step ({label}) launched {per_step[label]}, expected {want}")
     cuda_mod.reset_launches()
     ms = {"r1": [], "no_r1": []}
     rows = []
@@ -1301,7 +1592,8 @@ def phase_train(torch, port, gpu):
     counts = cuda_mod.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {k: 2 * v + 6 * roof.train_launches(256, False)[k] for k, v in roof.train_launches(256, True).items()}
-    check(counts == want, f"8 timed training steps launched {counts}, expected {want}")
+    check(of_dtype(counts) == want and not any(of_dtype(counts, "bfloat16").values()),
+          f"8 timed training steps launched {counts}, expected {want}")
     check(all(v == v and abs(v) < float("inf") for r in rows for v in r.values()), f"non-finite losses {rows}")
     check([r["r1"] > 0 for r in rows] == [False, False, True, False, False, False, True, False], "R1 schedule")
     prof = device_kernel_ms(torch, lambda: gan.run_steps(state, seed, 4, mcfg, tcfg), calls=1)
@@ -1403,13 +1695,15 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script ({e})", file=sys.stderr)
         return 2
+    global BF16
+    BF16 = port["roof"].BF16_SUFFIX
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     shutil.rmtree(OUT, ignore_errors=True)  # an earlier run's PNGs would be counted with this run's
     os.makedirs(OUT, exist_ok=True)
 
     gpu = gpu_name_and_power()
-    t0 = time.time()
+    t0 = t_start = time.time()
     lib = port["_cuda"].build()
     port["_cuda"].library()
     import numpy
@@ -1422,9 +1716,15 @@ def main() -> int:
     per_kernel = phase_kernels(torch, mods, port["roof"].DISC_BLUR_SHAPES)
     phase_second_derivative(torch, mods, port["roof"].DISC_BLUR_SHAPES)
     phase_launch_times(torch, mods + (port["roof"],), per_kernel)
+    emit({"phase": "kernels_done", "seconds": time.time() - t_start})
     phase_recovery(torch, port)
+    phase_recovery(torch, port, "bfloat16")
     phase_generate(torch, port)
-    counts, per_step = phase_attribute(torch, port, gpu)
+    counts, per_step, f32_line = phase_attribute(torch, port, gpu)
+    t0 = time.time()
+    per_step.update(phase_step16(torch, port, gpu))
+    bf16_counts = phase_attribute_bf16(torch, port, gpu, f32_line)
+    emit({"phase": "bf16_paths_done", "seconds": time.time() - t0})
     phase_attacks(torch, port)
     phase_robust_recovery(torch, port)
     attacked_counts = phase_attacked_attribute(torch, port, gpu)
@@ -1442,6 +1742,7 @@ def main() -> int:
     emit({"phase": "biggan_done", "seconds": time.time() - t0})
     t0 = time.time()
     model_attribution_counts = phase_model_attribution(torch, port, gpu)
+    studies_counts = phase_studies_bf16(torch, port, gpu)
     emit({"phase": "model_attribution_done", "seconds": time.time() - t0})
     t0 = time.time()
     training_counts = phase_train(torch, port, gpu)
@@ -1455,20 +1756,28 @@ def main() -> int:
                "upblur4": ("upblur4", "err_fwd"), "upblur4_adj": ("upblur4", "err_dx")}
     kernels = []
     for name, k in port["_cuda"].KERNELS.items():
-        base, which = through.get(name, (name, None))
-        agg, launch = per_kernel[base], per_kernel[("launch", name)]
+        bf16 = name.endswith(BF16)
+        launch = per_kernel[("launch", name)]
+        if bf16:  # held at the launch level only (phase 2's bf16 rows)
+            err = launch["err"]
+        else:
+            base, which = through.get(name, (name, None))
+            agg = per_kernel[base]
+            err = max(launch["err"], agg[which] if which else max(agg["err_fwd"], agg["err_dx"]))
         # times: one launch of each distinct main-path shape at batch 16 (the 16-chain
         # solve), launch function only, summed over the shapes
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PORT}/{k.source}", "replaces": k.replaces,
-            "launches": counts[name], "launches_attacked_path": attacked_counts[name],
+            # the main path of a _bf16 kernel is cli.attribute --dtype bfloat16
+            "launches": (bf16_counts if bf16 else counts)[name], "launches_attacked_path": attacked_counts[name],
             "launches_encoder_training": encoder_counts[name],
             "launches_attribute_encoder_path": attribute_encoder_counts[name],
             "launches_served_attribution": serve_counts[name],
             "launches_biggan_attribution": biggan_counts[name],
             "launches_model_attribution": model_attribution_counts[name],
             "launches_training": training_counts[name],
-            "max_abs_err": max(launch["err"], agg[which] if which else max(agg["err_fwd"], agg["err_dx"])),
+            "launches_bf16_studies": studies_counts[name],
+            "max_abs_err": err,
             "ms": launch["ms"], "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
             "bound_by": max(launch["bound_by"], key=launch["bound_by"].get),
             "library_ms": launch["library_ms"], "batch": 16,

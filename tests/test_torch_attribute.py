@@ -5,6 +5,7 @@ the port never imports JAX.
 """
 
 import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -212,9 +213,17 @@ def test_cli_attribute_writes_reference_layout(tmp_path):
     assert all(np.isfinite(r.losses))
 
 
-def test_cli_refuses_unported_flags():
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli_attribute.run(["--device", "cpu", "--random_init", "--dtype", "bfloat16"])
+def test_cli_refuses_unported_flags(tmp_path):
+    # --dtype bfloat16 is ported: a 2-step bf16 run completes and saves its dtype (a resume takes it)
+    r = cli_attribute.run([
+        "--device", "cpu", "--random_init", "--img_size", "16", "--style_dim", "32", "--n_mlp", "2",
+        "--channel_max", "32", "--key_len", "8", "--shift", "16", "--loss", "perceptual",
+        "--sample_size", "1", "--n", "2", "--steps", "2", "--dtype", "bfloat16", "--save_dir", str(tmp_path),
+    ])
+    assert os.path.exists(os.path.join(r.run_dir, "result.txt")) and all(np.isfinite(r.losses))
+    assert json.load(open(os.path.join(r.run_dir, "attribution_state.json")))["config"]["run"]["dtype"] == "bfloat16"
+    with pytest.raises(SystemExit):
+        cli_attribute.run(["--device", "cpu", "--random_init", "--dtype", "float16"])
     # BigGAN is ported; the encoder that seeds --init encoder renders StyleGAN2 only
     with pytest.raises(SystemExit, match="StyleGAN2's synthesis; --model biggan"):
         cli_attribute.run(["--device", "cpu", "--random_init", "--model", "biggan", "--init", "encoder"])

@@ -4,7 +4,11 @@ Marked ``gpu``; skipped (with a reason) where no CUDA device is present.
 Run on a GPU machine with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
 Tolerance: 1e-4 * max(1, max|plain|), float32 with TF32 off (another
 summation order over up to 9*C terms; the tensor-core kernels sum three TF32
-products of split operands in the tensor cores' float32 accumulators).
+products of split operands in the tensor cores' float32 accumulators).  The
+bfloat16 variants (``*_bf16`` kernels) against the plain versions in bf16:
+max|kernel - plain| < 0.03 * max|plain|, the reference's own bound for its
+bf16 kernels (both sides round each output to bf16, one after another
+summation order, so they may differ by an ulp, 2^-8 of the value).
 """
 
 import dataclasses
@@ -26,6 +30,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
+BF16_TOL = 0.03
 
 
 @pytest.fixture
@@ -47,7 +52,12 @@ def _close(k, p):
     assert (k - p).abs().max().item() <= TOL * max(1.0, p.abs().max().item())
 
 
-def _check(kernel_fn, plain_fn, x, cot, masked_plain=None, keep=None):
+def _close_bf16(k, p):
+    assert k.dtype == p.dtype == torch.bfloat16 and torch.isfinite(k).all()
+    assert (k.float() - p.float()).abs().max().item() < BF16_TOL * p.float().abs().max().item()
+
+
+def _check(kernel_fn, plain_fn, x, cot, masked_plain=None, keep=None, close=_close):
     """Forward and dx against plain, dx through autograd on both sides.
 
     Past a ReLU the two forwards' masks [y > 0] differ wherever y is within
@@ -64,11 +74,11 @@ def _check(kernel_fn, plain_fn, x, cot, masked_plain=None, keep=None):
     yref = yp if masked_plain is None else masked_plain(xp, yk.detach())
     (dp,) = torch.autograd.grad(yref, xp, cot)
     torch.cuda.synchronize()
-    _close(yk, yp)
+    close(yk, yp)
     if keep is not None:
         assert keep.float().mean().item() > 0.99
         dk, dp = dk * keep, dp * keep
-    _close(dk, dp)
+    close(dk, dp)
 
 
 def _adjoint_plain(cot, wt):
@@ -202,8 +212,9 @@ def _slice_weights(cuda):
 def _slice_keep(x, ws):
     """dx elements outside the 3x3 neighbourhoods of pixels where some channel of
     conv1(x) + b1 is within rounding (1e-5) of zero: there the kernel's recomputed
-    sign (its own fmaf order) may differ from cuDNN's."""
-    z1 = vgg_cuda.conv3x3_plain(x.detach(), ws[0], ws[1])
+    sign (its own fmaf order) may differ from cuDNN's.  conv1 is summed in float32
+    from the values the kernel sees (a bf16 x with w1 rounded to bf16)."""
+    z1 = vgg_cuda.conv3x3_plain(x.detach().float(), ws[0].to(x.dtype).float(), ws[1])
     near = (z1.abs().amin(dim=-1, keepdim=True) < 1e-5).float().permute(0, 3, 1, 2)
     return ~(torch.nn.functional.max_pool2d(near, 3, stride=1, padding=1).permute(0, 2, 3, 1) > 0)
 
@@ -260,11 +271,115 @@ def test_vgg_slice1_kernel(cuda, h, w, seed):
 
 
 def test_kernels_refuse_bfloat16(cuda):
+    """bfloat16 reaches the bf16 variants; float16 (and a launch that mixes dtypes) is refused."""
+    w, b = torch.zeros(3, 3, 64, 64, device=cuda), torch.zeros(64, device=cuda)
     x = torch.zeros(1, 8, 8, 64, device=cuda, dtype=torch.bfloat16)
+    _cuda.reset_launches()
+    assert upfirdn2d_cuda.blur4(x, K1, K1, (1, 1), (1, 1)).dtype == torch.bfloat16
+    assert vgg_cuda.conv3x3_relu(x, w, b).dtype == torch.bfloat16
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    assert counts["blur4_bf16"] == 1 and counts["conv3x3_relu_bf16"] == 1
+    assert counts["blur4"] == 0 and counts["conv3x3_relu"] == 0
     with pytest.raises(TypeError):
-        upfirdn2d_cuda.blur4(x, K1, K1, (1, 1), (1, 1))
+        upfirdn2d_cuda.blur4(x.half(), K1, K1, (1, 1), (1, 1))
     with pytest.raises(TypeError):
-        vgg_cuda.conv3x3_relu(x, torch.zeros(3, 3, 64, 64, device=cuda), torch.zeros(64, device=cuda))
+        vgg_cuda.conv3x3_relu(x.half(), w, b)
+    with pytest.raises(TypeError):
+        upfirdn2d_cuda.upblur4_add(torch.zeros(1, 8, 8, 3, device=cuda),
+                                   torch.zeros(1, 4, 4, 3, device=cuda, dtype=torch.bfloat16), K1)
+
+
+# ---- the bfloat16 variants, at the float32 cases' shapes ----
+
+
+def _bf(t):
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("c,h,w,pads", BLUR4_CASES)
+def test_blur4_bf16_kernel(cuda, c, h, w, pads):
+    x = _bf(_rand(2, h, w, c).to(cuda))
+    oh, ow = h + sum(pads) - 3, w + sum(pads) - 3
+    cot = _bf(_rand(2, oh, ow, c, seed=1).to(cuda))
+    _cuda.reset_launches()
+    _check(lambda v: upfirdn2d_cuda.blur4(v, K1, K1, pads, pads),
+           lambda v: upfirdn2d_cuda.blur4_plain(v, K1, K1, pads, pads), x, cot, close=_close_bf16)
+    assert _cuda.launch_counts()["blur4_bf16"] == 2 and _cuda.launch_counts()["blur4"] == 0
+
+
+@pytest.mark.parametrize("taps", [K1, K_SKEW])
+@pytest.mark.parametrize("c,h,w", UPBLUR4_CASES)
+def test_upblur4_add_bf16_kernel(cuda, c, h, w, taps):
+    """The fused rgb + upblur4(skip) in bf16: forward, d/dskip (the adjoint kernel) and d/drgb."""
+    x = _bf(_rand(2, h, w, c).to(cuda))
+    rgb = _bf(_rand(2, 2 * h, 2 * w, c, seed=2).to(cuda)).requires_grad_(True)
+    cot = _bf(_rand(2, 2 * h, 2 * w, c, seed=1).to(cuda))
+    _cuda.reset_launches()
+    _check(lambda v: upfirdn2d_cuda.upblur4_add(rgb, v, taps),
+           lambda v: upfirdn2d_cuda.upblur4_add_plain(rgb, v, taps), x, cot, close=_close_bf16)
+    counts = _cuda.launch_counts()
+    assert counts["upblur4_bf16"] == 1 and counts["upblur4_adj_bf16"] == 1
+    (d_rgb,) = torch.autograd.grad(upfirdn2d_cuda.upblur4_add(rgb, x, taps), rgb, cot)
+    assert torch.equal(d_rgb, cot)
+    g = _bf(_rand(2, 2 * h, 2 * w, c, seed=3).to(cuda))
+    _close_bf16(upfirdn2d_cuda.upblur4_adjoint_launch(g, taps), upfirdn2d_cuda.upblur4_adjoint_plain(g, taps))
+
+
+@pytest.mark.parametrize("c,h,w", CONV_SHAPES)
+def test_conv3x3_relu_bf16_kernel(cuda, c, h, w):
+    """Forward (float32 parameters, bf16 activations) and dx through autograd
+    against the plain bf16 conv, the plain side under the kernel's ReLU mask;
+    and the launch function's adjoint pass alone."""
+    wt, b, x, cot = _conv_inputs(cuda, c, h, w)
+    x, cot = _bf(x), _bf(cot)
+    _cuda.reset_launches()
+    _check(lambda v: vgg_cuda.conv3x3_relu(v, wt, b), lambda v: vgg_cuda.conv3x3_relu_plain(v, wt, b), x, cot,
+           lambda v, y: vgg_cuda.conv3x3_plain(v, wt, b) * (y > 0), close=_close_bf16)
+    assert _cuda.launch_counts()["conv3x3_relu_bf16"] == 2 and _cuda.launch_counts()["conv3x3_relu"] == 0
+    _close_bf16(vgg_cuda.conv3x3_launch(cot, wt, None, relu=False, flip=True), _adjoint_plain(cot, wt))
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 16, 16), (2, 13, 22), (2, 29, 43), (2, 256, 256), (16, 256, 256)])
+def test_vgg_slice1_bf16_forward_launch(cuda, n, h, w):
+    ws = _slice_weights(cuda)
+    x = _bf(_rand(n, h, w, 3).to(cuda))
+    got = vgg_slice_cuda.slice1_forward_launch(x, *ws)
+    torch.cuda.synchronize()
+    _close_bf16(got, vgg_slice_cuda.vgg_slice1_plain(x, *ws))
+
+
+@pytest.mark.parametrize("h,w", [(16, 16), (13, 22), (14, 14), (29, 43), (256, 256)])
+def test_vgg_slice1_bf16_backward_launch(cuda, h, w):
+    """The bf16 backward kernel alone, on the plain bf16 forward's a2, against
+    autograd of the plain bf16 slice; conv1's sign neighbourhoods left out as
+    in float32."""
+    ws = _slice_weights(cuda)
+    x = _bf(_rand(2, h, w, 3).to(cuda)).requires_grad_(True)
+    cot = _bf(_rand(2, h, w, 64, seed=1).to(cuda))
+    yp = vgg_slice_cuda.vgg_slice1_plain(x, *ws)
+    (want,) = torch.autograd.grad(yp, x, cot)
+    got = vgg_slice_cuda.slice1_backward_launch(cot, yp.detach(), x.detach(), ws[0], ws[1], ws[2])
+    keep = _slice_keep(x, ws)
+    assert keep.float().mean().item() > 0.99
+    _close_bf16(got * keep, want * keep)
+
+
+@pytest.mark.parametrize("h,w,seed", [(16, 16, 0), (13, 22, 0), (256, 256, 0)])
+def test_vgg_slice1_bf16_kernel(cuda, h, w, seed):
+    ws = _slice_weights(cuda)
+    x = _bf(_rand(2, h, w, 3, seed=seed).to(cuda))
+    cot = _bf(_rand(2, h, w, 64, seed=seed + 1).to(cuda))
+
+    def masked_plain(v, y):
+        a1 = vgg_cuda.conv3x3_relu_plain(v, ws[0], ws[1])
+        return vgg_cuda.conv3x3_plain(a1, ws[2], ws[3]) * (y > 0)
+
+    _cuda.reset_launches()
+    _check(lambda v: vgg_slice_cuda.vgg_slice1(v, *ws), lambda v: vgg_slice_cuda.vgg_slice1_plain(v, *ws), x, cot,
+           masked_plain, _slice_keep(x, ws), close=_close_bf16)
+    counts = _cuda.launch_counts()
+    assert counts["vgg_slice1_fwd_bf16"] == 1 and counts["vgg_slice1_bwd_bf16"] == 1
 
 
 def test_launches_are_counted(cuda):

@@ -19,6 +19,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch
     FingerprintConfig,
     ModelConfig,
 )
+from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.eval import identification as ident_mod
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.eval import study
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.eval.identification import (
     identification_point,
@@ -105,9 +106,9 @@ def pipe():
                              generator=torch.Generator().manual_seed(0), device="cpu", want_lpips=False)
 
 
-def test_identification_point_record_and_validation(pipe):
+def test_identification_point_record_and_validation(pipe, monkeypatch):
     rec = identification_point(pipe, key_len=8, sigma=1.0, shift=56, min_distance=3, registry_sizes=(4, 8),
-                               samples=4, steps=8, n_starts=2, seed=11, clip_targets=False)
+                               samples=4, steps=8, n_starts=2, seed=11, clip_targets=False, dtype="float32")
     assert rec["key_len"] == 8 and rec["min_distance"] == 3 and rec["distinct_users"] == 4
     assert rec["issuance"] == "rejection" and rec["attack"] == "None" and "init" not in rec
     assert 0.0 <= rec["measured_p_bit"] <= 1.0 and rec["mean_bit_acc"] == 1.0 - rec["measured_p_bit"]
@@ -121,9 +122,17 @@ def test_identification_point_record_and_validation(pipe):
     with pytest.raises(ValueError, match="issuance"):
         identification_point(pipe, registry_sizes=(4,), key_len=8, shift=56, samples=2, steps=2, n_starts=2,
                              issuance="bogus")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        identification_point(pipe, registry_sizes=(4,), key_len=8, shift=56, samples=2, steps=2, n_starts=2,
-                             dtype="bfloat16")
+    # bfloat16, the reference study's default and the port's, solves in bf16
+    solve, dtypes = ident_mod.attr.attribute_chunked, []
+    monkeypatch.setattr(ident_mod.attr, "attribute_chunked",
+                        lambda *a, **k: dtypes.append(k["dtype"]) or solve(*a, **k))
+    bf = identification_point(pipe, registry_sizes=(4,), key_len=8, shift=56, min_distance=3, samples=2, steps=2,
+                              n_starts=2, clip_targets=False)
+    monkeypatch.undo()
+    assert dtypes == ["bfloat16"] and 0.0 <= bf["measured_p_bit"] <= 1.0
+    with pytest.raises(ValueError, match="dtype"):
+        identification_point(pipe, registry_sizes=(4,), key_len=8, shift=56, min_distance=3, samples=2, steps=2,
+                             n_starts=2, dtype="float16")
 
 
 def test_identification_point_rm_attacked_encoder_init(pipe):
@@ -132,7 +141,7 @@ def test_identification_point_rm_attacked_encoder_init(pipe):
     encoder trained on that channel, in sample chunks of two."""
     rec = identification_point(pipe, key_len=32, sigma=1.0, shift=32, registry_sizes=(4, 64), samples=4,
                                steps=4, n_starts=2, seed=3, clip_targets=False, issuance="rm", attack="Blur",
-                               attack_aware=True, init="encoder", encoder_steps=1, chunk_samples=2)
+                               attack_aware=True, init="encoder", encoder_steps=1, chunk_samples=2, dtype="float32")
     assert rec["issuance"] == "rm" and rec["min_distance"] == 8
     assert rec["attack"] == "Blur" and rec["attack_aware"] is True
     assert [r["registry_size"] for r in rec["by_registry_size"]] == [4, 64]

@@ -187,9 +187,10 @@ def test_registry_is_checked_before_any_solve(registries):
 
 def test_model_attribution_point_statistics_match_jax(registries, monkeypatch):
     """The port's study over a 2-model registry and a held-out model (2 samples
-    each, 2 steps, 4 restarts, chunks of 2); the JAX package's study then reads
-    the same targets and solves (its target draw and solve replaced by the
-    port's, in the same order): the two records are equal."""
+    each, 2 steps, 4 restarts, chunks of 2), its solves in bfloat16 (the
+    default, as in the reference); the JAX package's study then reads the same
+    targets and solves (its target draw and solve replaced by the port's, in
+    the same order): the two records, decisions included, are equal."""
     _, tpipes, _ = registries
     seen_targets, seen_solves = [], []
     draw, solve = study._fingerprinted_targets, study.attribute_model
@@ -199,6 +200,7 @@ def test_model_attribution_point_statistics_match_jax(registries, monkeypatch):
         return seen_targets[-1]
 
     def rec_solve(*a, **k):
+        assert k["dtype"] == "bfloat16"
         seen_solves.append(solve(*a, **k))
         return seen_solves[-1]
 
@@ -210,8 +212,6 @@ def test_model_attribution_point_statistics_match_jax(registries, monkeypatch):
     kw = dict(key_len=4, sigma=1.0, samples_per_model=2, steps=2, n_starts=4, chunk_samples=2,
               clip_targets=False)
     got = study.model_attribution_point(registry, held, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        study.model_attribution_point(registry, held, dtype="bfloat16", **kw)
     assert len(seen_targets) == 3 and len(seen_solves) == 3
 
     replay_t, replay_s = iter(seen_targets), iter(seen_solves)

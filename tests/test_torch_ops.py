@@ -198,12 +198,18 @@ def test_maxpool2x2_matches_jax_with_ties():
 
 
 def test_kernel_wrappers_refuse_non_float32_on_cuda_path():
-    """The CUDA launchers check dtype before anything reaches the card."""
+    """The CUDA launchers check dtype before anything reaches the card: float32
+    and bfloat16 pass the dtype check (and are then refused here only for lying
+    on the CPU); float16, float64 and a launch that mixes dtypes are refused."""
     from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.ops._cuda import (
-        check_cuda_f32,
+        check_cuda_operands,
     )
 
-    with pytest.raises(TypeError):
-        check_cuda_f32("blur4", torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16))
-    with pytest.raises(ValueError):
-        check_cuda_f32("blur4", torch.zeros(1, 4, 4, 8))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            check_cuda_operands("blur4", torch.zeros(1, 4, 4, 8, dtype=dtype))
+    with pytest.raises(TypeError, match="operands of one launch"):
+        check_cuda_operands("upblur4", torch.zeros(1, 4, 4, 3, dtype=torch.bfloat16), torch.zeros(1, 8, 8, 3))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            check_cuda_operands("blur4", torch.zeros(1, 4, 4, 8, dtype=dtype))

@@ -220,3 +220,10 @@ def test_kernel_counts_per_image(name, flops_g, mbytes, by):
         assert c["bound_ms"] == pytest.approx(1e3 * max(t_ops, c["bytes"] / roofline.PEAK_BYTES))
     assert set(roofline.LAUNCHES_PER_STEP) == {"blur4", "upblur4", "upblur4_adj", "conv3x3_relu",
                                                "vgg_slice1_fwd", "vgg_slice1_bwd"}
+    # the bf16 variants: the same operations, half the bytes, the FIRs at the float32
+    # CUDA-core rate (they sum in float), the products at the dense bf16 tensor-core rate
+    for (_, c), (_, b) in zip(cases, roofline.main_path(name, 1, "bfloat16")):
+        assert b["flops"] == c["flops"] and b["bytes"] == c["bytes"] / 2
+        t_ops = b["flops"] / (roofline.PEAK_F32 if "blur4" in name else roofline.PEAK_BF16)
+        assert b["bound_ms"] == pytest.approx(1e3 * max(t_ops, b["bytes"] / roofline.PEAK_BYTES))
+    assert roofline.step_launches("bfloat16")[name + "_bf16"] == roofline.LAUNCHES_PER_STEP[name]
