@@ -249,10 +249,11 @@ __device__ __forceinline__ void fp_tc_tap(const float* __restrict__ px0,
 //
 // The bf16 variants of the three tensor-core kernels need no split: a bf16
 // product is exact in the float32 accumulator, so one pass of bf16 products
-// replaces the three TF32 ones (bound: flops / 989 TFLOP/s).  They use the
-// warp-level `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` (a simple
-// first version; `wgmma` with 32-byte k-steps is later work), with both
-// operands read from shared memory as 32-bit words:
+// replaces the three TF32 ones (bound: flops / 989 TFLOP/s).  The slice
+// forward's (slice1_fwd_bf16_kernel) uses the warp-level
+// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`, with both operands
+// read from shared memory as 32-bit words (the conv and the slice backward
+// take the `wgmma` route at the end of this file):
 //   A (16 pixels x 16 channels): the band [pixel][KS bf16], thread (g, t) reads
 //     channels 2t, 2t + 1 and 2t + 8, 2t + 9 of pixels g and g + 8;
 //   B (16 channels x 8 out-channels): the weights [tap][n][KS bf16], K-major,
@@ -332,4 +333,129 @@ __device__ __forceinline__ void fp_cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void fp_cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bfloat16 route on `wgmma` (conv3x3_bf16_kernel, slice1_bwd_bf16_kernel) ----
+//
+// One pass of `wgmma.mma_async.m64nNk16.f32.bf16.bf16`: a bf16 product is exact
+// in the float32 accumulator, so no split.
+//   B (weights) comes from shared memory through a descriptor: K-major rows of
+//     64 bf16 (128 bytes, one 64-channel chunk) in the 128-byte swizzle (16-byte
+//     chunk index XOR row % 8), 8-row groups 1024 bytes apart; fp_wgmma_desc as
+//     for the float32 route.  A k16-step is 32 bytes along the row, the same
+//     byte stride as the float32 route's k8: the descriptor advances by 2.  The
+//     packed global array holds that image (ops/tf32.py::pack_conv_weights_sw128).
+//   A (activations) comes from REGISTERS, loaded by `ldmatrix.x4` from a band of
+//     pixels in shared memory, each pixel one 128-byte row of 64 channels in the
+//     same 128-byte swizzle (fp_sw128).  A descriptor cannot read A here: a tap
+//     shifts the window by a pixel, and the swizzled core matrices of a
+//     descriptor must start on 8-row (1024-byte) boundaries, so only every
+//     eighth shift would be addressable.  With `ldmatrix` each lane names its
+//     own row: lane l gives pixel (l % 16) of the warp's 16 fragment rows and
+//     the 16-byte chunk 2 s + l / 16 of k-step s; 8 consecutive pixels at one
+//     chunk index fall in 8 distinct 16-byte bank groups, so the loads are free
+//     of bank conflicts.  The fragment is then the `wgmma` A layout: thread
+//     (g = lane / 4, t = lane % 4) of warp w holds rows 16 w + g, 16 w + g + 8,
+//     channels 2 t, 2 t + 1 and 2 t + 8, 2 t + 9.
+//   D as for the float32 route: element i of the N / 2 lies at row g + 8 *
+//     ((i / 2) % 2), column 8 * (i / 4) + 2 t + i % 2.
+
+// Byte offset of 16-byte chunk q of pixel p in a band of 128-byte pixel rows.
+__device__ __forceinline__ uint32_t fp_sw128(int p, int q) {
+  return (uint32_t)(p * 128 + ((q ^ (p & 7)) << 4));
+}
+
+__device__ __forceinline__ void fp_ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// The four k-steps of one tap x 64-channel chunk: A fragments of the lane's pixel
+// `p` (its address row in the band), from the band at shared address `band`.
+__device__ __forceinline__ void fp_load_a4(uint32_t (&fr)[4][4], uint32_t band, int p, int lane) {
+  const uint32_t row = band + p * 128;
+  const int sw = p & 7, h8 = lane >> 4;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) fp_ldmatrix_x4(fr[s], row + (((2 * s + h8) ^ sw) << 4));
+}
+
+__device__ __forceinline__ void fp_wgmma_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void fp_wgmma_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void fp_wgmma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// acc = (accumulate ? acc : 0) + A (four k-steps of fr) x B (the [N][64] tile at shared
+// address b), as one committed `wgmma` group; the caller waits for it with
+// fp_wgmma_wait.  Starting a sum with accumulate = false (the instruction's scale-d
+// predicate) leaves the accumulators to the `wgmma`s alone: no other instruction
+// writes them while a group is in flight, which ptxas needs to keep the groups
+// asynchronous (else it serialises them, warning C7515).
+template <int NREG>
+__device__ __forceinline__ void fp_wgmma_bf16_tap(float (&acc)[NREG], const uint32_t (&fr)[4][4],
+                                                  uint32_t b, bool accumulate = true) {
+  const uint64_t desc = fp_wgmma_desc(b);
+  fp_wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) fp_wgmma_bf16(acc, fr[s], desc + 2 * s, s > 0 || accumulate);
+  fp_wgmma_commit();
+}
+
+// Transpose a 4 x 4 block of 32-bit words across the four lanes t = lane % 4 of a
+// quad: on return v[r] holds what lane r held in v[t].  Two rounds of two shuffles.
+__device__ __forceinline__ void fp_quad_transpose(uint32_t (&v)[4], int t) {
+  const bool t1 = t & 2, t0 = t & 1;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {  // trade the words whose index bit 1 differs from t's with lane t ^ 2
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, t1 ? v[c] : v[2 + c], 2);
+    if (t1) v[c] = r; else v[2 + c] = r;
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {  // then bit 0 with lane t ^ 1
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, t0 ? v[2 * c] : v[2 * c + 1], 1);
+    if (t0) v[2 * c] = r; else v[2 * c + 1] = r;
+  }
 }

@@ -44,21 +44,39 @@
 //            memory.  Neither relu1_1 nor dz1 nor dz2 reaches device memory.
 //
 // bfloat16 variants (vgg_slice1_fwd_bf16, vgg_slice1_bwd_bf16), bf16 in and
-// out, simple first versions on the warp-level `mma.sync.m16n8k16` bf16 product
-// of tc_tile.cuh (one pass, float32 accumulators; bound 81 and 85 GFLOP at
-// batch 16 over 989 TFLOP/s) with all of the packed w2 ([tap][64][64], rows
-// padded to 72 bf16) resident in shared memory, one 256-thread block an SM.
-// They round where the TPU kernel rounds: relu1_1 to bf16 in the band (its
-// `a1band` scratch is x.dtype) and dz1 to bf16 before the last product; biases
-// are float32, added to the float32 sums.
-//   forward  8 x 16 output tile as above; conv1 on the CUDA cores from the bf16
-//            x and w1 widened to float, in the float32 kernel's fmaf order;
-//            conv2 as 8 warps of 2 pixel rows x 32 channels.
-//   backward 14 x 14 dx tile: dz2 = g * [a2 > 0] (18 x 18, exact in bf16), da1 =
-//            conv_T(dz2, w2) on 16 x 16 (8 warps of 4 pixel rows x 32 channels),
-//            conv1's sign recomputed in the forward's fmaf order, dz1 = bf16(da1 *
-//            [z1 > 0]) over dz2's space, dx = conv_T(dz1, w1) with N padded to 8
-//            (8 warps of 2 pixel rows).
+// out: one pass of bf16 products, float32 accumulators (bound 81 and 85 GFLOP
+// at batch 16 over 989 TFLOP/s).  They round where the TPU kernel rounds:
+// relu1_1 to bf16 in the band (its `a1band` scratch is x.dtype) and dz1 to bf16
+// before the last product; biases are float32, added to the float32 sums.
+//   forward  On the warp-level `mma.sync.m16n8k16` (tc_tile.cuh fp_bf16_taps)
+//            with all of the packed w2 ([tap][64][64], rows padded to 72 bf16)
+//            resident, one 256-thread block an SM, an 8 x 16 output tile as
+//            above; conv1 on the CUDA cores from the bf16 x and w1 widened to
+//            float, in the float32 kernel's fmaf order; conv2 as 8 warps of 2
+//            pixel rows x 32 channels.
+//   backward A persistent `wgmma` kernel (tc_tile.cuh's bf16 route): one
+//            256-thread block an SM walks the 14 x 14 dx tiles (block j takes
+//            tiles j, j + grid, ...).  It copies the packed adjoint w2 (9 taps
+//            x [64 n][64 k] bf16 in the 128-byte swizzle, 72 KB) and w1 (N
+//            padded to 8, 9 KB) into shared memory once, by bulk async copy.
+//            Per tile: dz2 = g * [a2 > 0] on 18 x 18 (zero outside the image)
+//            is formed in place over g's band (pixels as 128-byte swizzled
+//            rows), while the NEXT tile's g and a2 come in by `cp.async` and its
+//            x into registers; da1 = conv_T(dz2, w2) on the 16 x 16 region is
+//            `wgmma.m64n64k16` (4 row tiles, two a warpgroup; A by `ldmatrix`
+//            from the band, B by descriptor from the resident w2), and under
+//            each tap's groups the CUDA cores take conv1's three terms of that
+//            tap for both row tiles (the forward's fmaf order; each w1 pair
+//            read once); dz1 = bf16(da1 * [z1 > 0]) overwrites dz2; dx =
+//            conv_T(dz1, w1) is `wgmma.m64n8k16` (3 of 8 columns used: the
+//            product is 0.1 of the tile's flops, ~7% of its time when left out).
+//            Shared memory: w2 72 KB + w1 9 KB + two g bands 81 KB + a2 41 KB
+//            + two x bands 7.6 KB + w1, b1 as float 7 KB = 223,336 bytes of
+//            232,448 with the alignment pad, so one block an SM.  The tile
+//            stays 14 x 14 (bands 1.65x the bytes of g and a2, da1 recomputed
+//            on 1.31x): a 16-row region a warpgroup would hold 4 x 32
+//            accumulators and 4 x 32 conv1 sums a thread, more than the 255
+//            registers there are (the kernel uses 255 at 2 x 32 each).
 
 #include "tc_tile.cuh"
 
@@ -440,12 +458,7 @@ constexpr int S_THREADS = 256;
 constexpr int SF_A1 = F_BAND_PIXELS * S_KS;
 constexpr size_t SF_OFF_XS = sizeof(bf16) * (S_W2 + SF_A1);
 constexpr size_t SF_BYTES = SF_OFF_XS + sizeof(float) * (F_XS + F_W1 + 64);
-// backward: w2 | dz2 / dz1 band (18 x 18) | w1 adjoint taps (N 8) | x (18 x 18 x 3 float) | w1 | b1
-constexpr int SB_BAND = B_R2 * B_R2 * S_KS;
-constexpr int SB_W1F = 9 * 8 * S_KS;
-constexpr size_t SB_OFF_XS = sizeof(bf16) * (S_W2 + SB_BAND + SB_W1F);
-constexpr size_t SB_BYTES = SB_OFF_XS + sizeof(float) * (B_XS + F_W1 + 64);
-static_assert(SF_OFF_XS % 16 == 0 && SB_OFF_XS % 16 == 0 && SB_BYTES <= 232448, "layout");
+static_assert(SF_OFF_XS % 16 == 0, "layout");
 
 __device__ __forceinline__ float s_ld(const bf16* p) {
   return __uint_as_float(static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p)) << 16);
@@ -575,145 +588,265 @@ __global__ void __launch_bounds__(S_THREADS, 1)
   }
 }
 
+// ---- backward, bf16: a persistent `wgmma` kernel (tc_tile.cuh's bf16 route) ----
+// Shared memory, bytes from a 1024-byte aligned base: the adjoint w2 and w1 taps
+// (resident), two dz2 / dz1 bands (the tile's and the next one's), the next tile's
+// raw a2, two x bands (float), w1 (float) and b1.  The bands hold 18 x 18 pixels of
+// 64 channels, a pixel one 128-byte row in the 128-byte swizzle (fp_sw128).
+constexpr int SW_THREADS = 256;
+constexpr int SW_PIX = B_R2 * B_R2;                          // 324
+constexpr uint32_t SW_BAND = SW_PIX * 128;                   // 41,472
+constexpr uint32_t SW_W2 = 9 * 64 * 128;                     // [tap][64 n][64 k] bf16: 73,728
+constexpr uint32_t SW_W1F = 9 * 8 * 128;                     // [tap][8 n][64 k] bf16: 9,216
+constexpr uint32_t SW_OFF_W1F = SW_W2;
+constexpr uint32_t SW_OFF_G = SW_OFF_W1F + SW_W1F;           // two bands
+constexpr uint32_t SW_OFF_A2 = SW_OFF_G + 2 * SW_BAND;
+constexpr uint32_t SW_OFF_XS = SW_OFF_A2 + SW_BAND;          // two x bands of B_XS floats
+constexpr uint32_t SW_OFF_W1 = SW_OFF_XS + 2 * sizeof(float) * B_XS;
+constexpr uint32_t SW_OFF_B1 = SW_OFF_W1 + sizeof(float) * F_W1;
+constexpr uint32_t SW_OFF_BAR = SW_OFF_B1 + sizeof(float) * 64;
+constexpr size_t SW_BYTES = 1024 + SW_OFF_BAR + sizeof(uint64_t);
+static_assert(SW_OFF_G % 1024 == 0 && SW_OFF_A2 % 128 == 0 && SW_OFF_BAR % 8 == 0, "alignment");
+static_assert(SW_BYTES <= 232448, "one block an SM");
+
+struct SwTile {
+  int64_t img;  // first pixel of the tile's image
+  int ty0, tx0;
+};
+
+__device__ __forceinline__ SwTile sw_tile(int64_t tile, int h, int wd) {
+  const int tiles_x = (wd + B_TILE - 1) / B_TILE;
+  const int64_t per_img = (int64_t)((h + B_TILE - 1) / B_TILE) * tiles_x;
+  const int rem = (int)(tile % per_img);
+  return {(tile / per_img) * h * wd, (rem / tiles_x) * B_TILE, (rem % tiles_x) * B_TILE};
+}
+
+// The tile's g and a2 on the 18 x 18 region at offset -2 (zero outside the image): 16-byte
+// cp.async pieces, piece i to thread i % SW_THREADS, which later masks what it loaded.
+__device__ __forceinline__ void sw_load_ga(uint8_t* gb, uint8_t* ab, const bf16* __restrict__ g,
+                                           const bf16* __restrict__ a2, SwTile tl, int h, int wd) {
+  for (int i = threadIdx.x; i < SW_PIX * 8; i += SW_THREADS) {
+    const int q = i & 7;
+    const int p = i >> 3;
+    const int gy = tl.ty0 - 2 + p / B_R2;
+    const int gx = tl.tx0 - 2 + p % B_R2;
+    const bool valid = gy >= 0 && gy < h && gx >= 0 && gx < wd;
+    const int64_t off = valid ? (tl.img + (int64_t)gy * wd + gx) * 64 + 8 * q : 0;
+    fp_cp_async16(gb + fp_sw128(p, q), g + off, valid);
+    fp_cp_async16(ab + fp_sw128(p, q), a2 + off, valid);
+  }
+}
+
+// x element i (< B_XS) of the tile's 18 x 18 x 3 region at offset -2, as raw bf16 bits;
+// 0 outside the image.
+__device__ __forceinline__ uint32_t sw_x(const bf16* __restrict__ x, SwTile tl, int i, int h, int wd) {
+  const int p = i / 3;
+  const int gy = tl.ty0 - 2 + p / B_R2;
+  const int gx = tl.tx0 - 2 + p % B_R2;
+  if (gy < 0 || gy >= h || gx < 0 || gx >= wd) return 0u;
+  return *reinterpret_cast<const unsigned short*>(x + (tl.img + (int64_t)gy * wd + gx) * 3 + i % 3);
+}
+
 // g, a2 [N,H,W,64], x [N,H,W,3] bf16; w1 HWIO bf16; w1fp, w2fp: flip_io(w1), flip_io(w2)
-// packed by pack_conv_weights_bf16 with N tiles of 8 and 64.
-__global__ void __launch_bounds__(S_THREADS, 1)
+// packed by pack_conv_weights_sw128 with N tiles of 8 and 64.  The grid walks the
+// tiles: block j takes tiles j, j + gridDim.x, ...
+__global__ void __launch_bounds__(SW_THREADS, 1)
     slice1_bwd_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a2,
                            const bf16* __restrict__ x, const bf16* __restrict__ w1,
                            const float* __restrict__ b1, const bf16* __restrict__ w1fp,
-                           const bf16* __restrict__ w2fp, bf16* __restrict__ dx, int h, int wd) {
-  extern __shared__ __align__(16) uint8_t smem_s1b[];
-  bf16* w2s = reinterpret_cast<bf16*>(smem_s1b);
-  bf16* band = w2s + S_W2;
-  bf16* w1fs = band + SB_BAND;
-  float* xs = reinterpret_cast<float*>(smem_s1b + SB_OFF_XS);
-  float* w1s = xs + B_XS;
-  float* b1s = w1s + F_W1;
+                           const bf16* __restrict__ w2fp, bf16* __restrict__ dx, int h, int wd,
+                           int64_t tiles) {
+  extern __shared__ uint8_t smem_sw[];
+  uint8_t* base = smem_sw + ((1024 - (fp_smem_u32(smem_sw) & 1023)) & 1023);
+  uint8_t* gbuf = base + SW_OFF_G;
+  uint8_t* abuf = base + SW_OFF_A2;
+  float* xs = reinterpret_cast<float*>(base + SW_OFF_XS);
+  float* w1s = reinterpret_cast<float*>(base + SW_OFF_W1);
+  float* b1s = reinterpret_cast<float*>(base + SW_OFF_B1);
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(base + SW_OFF_BAR);
 
-  const int tiles_x = (wd + B_TILE - 1) / B_TILE;
-  const int ty0 = (blockIdx.x / tiles_x) * B_TILE;
-  const int tx0 = (blockIdx.x % tiles_x) * B_TILE;
-  const int64_t img = (int64_t)blockIdx.z * h * wd;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int gq = lane >> 2;
   const int t = lane & 3;
+  const int wg = warp >> 2;  // warpgroup wg owns m-tiles 2 wg, 2 wg + 1 (16 region rows each 4)
+  const int wi = warp & 3;
+  const uint32_t w2_addr = fp_smem_u32(base);
+  const uint32_t w1f_addr = fp_smem_u32(base + SW_OFF_W1F);
 
-  s_load_taps(w2s, w2fp, 64);
-  s_load_taps(w1fs, w1fp, 8);
-  fp_cp_async_commit();
+  if (tid == 0) {
+    fp_mbar_init(wbar, 1);
+    fp_mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {  // the weights, once a block
+    fp_mbar_expect_tx(wbar, SW_W2 + SW_W1F);
+    fp_bulk_load(base, w2fp, SW_W2, wbar);
+    fp_bulk_load(base + SW_OFF_W1F, w1fp, SW_W1F, wbar);
+  }
+  for (int i = tid; i < F_W1; i += SW_THREADS) w1s[i] = s_ld(w1 + i);
+  if (tid < 64) b1s[tid] = b1[tid];
+  int64_t tile = blockIdx.x;
+  SwTile tl = sw_tile(tile, h, wd);
+  sw_load_ga(gbuf, abuf, g, a2, tl, h, wd);
+  for (int i = tid; i < B_XS; i += SW_THREADS) xs[i] = __uint_as_float(sw_x(x, tl, i, h, wd) << 16);
 
-  // dz2 = g * [a2 > 0] on the 18 x 18 region at offset -2, zero outside the image
-  for (int i = threadIdx.x; i < B_R2 * B_R2 * 8; i += S_THREADS) {
-    const int q = i % 8;
-    const int p = i / 8;
-    const int gy = ty0 - 2 + p / B_R2;
-    const int gx = tx0 - 2 + p % B_R2;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gy >= 0 && gy < h && gx >= 0 && gx < wd) {
-      const int64_t off = (img + (int64_t)gy * wd + gx) * 64 + 8 * q;
-      const uint4 gv = *reinterpret_cast<const uint4*>(g + off);
-      const uint4 av = *reinterpret_cast<const uint4*>(a2 + off);
+  // the lane's pixels: ldmatrix row (lane % 16) and accumulator rows gq, gq + 8 of warp wi
+  // in m-tile 2 wg + mt, i.e. region row 8 wg + 4 mt + wi
+  const int r_lm = lane & 15;
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int buf = it & 1;
+    uint8_t* band = gbuf + buf * SW_BAND;
+    const uint32_t band_addr = fp_smem_u32(band);
+    const float* xt = xs + buf * B_XS;
+
+    // dz2 = g * [a2 > 0] over the pieces this thread loaded, in place (a2 > 0 read off
+    // the bits: sign clear and not zero)
+    fp_cp_async_wait_all();
+    for (int i = tid; i < SW_PIX * 8; i += SW_THREADS) {
+      const uint32_t off = fp_sw128(i >> 3, i & 7);
+      uint4* gp = reinterpret_cast<uint4*>(band + off);
+      const uint4 gv = *gp;
+      const uint4 av = *reinterpret_cast<const uint4*>(abuf + off);
       const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w}, aw[4] = {av.x, av.y, av.z, av.w};
       uint32_t o[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // each half: keep g where a2 > 0 (a positive bf16: sign clear, not zero)
         const uint32_t lo = (aw[e] & 0x8000u) == 0 && (aw[e] & 0x7fffu) != 0 ? 0x0000ffffu : 0u;
         const uint32_t hi = (aw[e] & 0x80000000u) == 0 && (aw[e] & 0x7fff0000u) != 0 ? 0xffff0000u : 0u;
         o[e] = gw[e] & (lo | hi);
       }
-      v = make_uint4(o[0], o[1], o[2], o[3]);
+      *gp = make_uint4(o[0], o[1], o[2], o[3]);
     }
-    *reinterpret_cast<uint4*>(band + p * S_KS + 8 * q) = v;
-  }
-  s_load_conv1(xs, w1s, b1s, x, w1, b1, img, ty0 - 2, tx0 - 2, B_R2, B_R2, h, wd);
-  fp_cp_async_wait<0>();
-  __syncthreads();
+    __syncthreads();  // dz2 and the tile's x band complete; the a2 buffer is free
 
-  // da1 on the 16 x 16 region at offset -1: rows 4 wm .. 4 wm + 3, channels 32 wn ..
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  // bit 16 mt + 4 nt + i of `keep`: accumulator element (mt, nt, i) lies inside the
-  // image and has conv1(x) + b1 > 0, summed as the forward sums it
-  uint64_t keep = 0;
+    // the next tile's g, a2 (cp.async) and x (registers) come in under this tile's products
+    const int64_t next = tile + gridDim.x;
+    const SwTile tn = sw_tile(next, h, wd);
+    uint32_t xr[(B_XS + SW_THREADS - 1) / SW_THREADS];
+    if (next < tiles) {
+      sw_load_ga(gbuf + (buf ^ 1) * SW_BAND, abuf, g, a2, tn, h, wd);
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int ry = 4 * wm + mt;
+      for (int j = 0; j < (B_XS + SW_THREADS - 1) / SW_THREADS; ++j) {
+        const int i = tid + j * SW_THREADS;
+        xr[j] = i < B_XS ? sw_x(x, tn, i, h, wd) : 0u;
+      }
+    }
+    if (it == 0) fp_mbar_wait(wbar, 0);
+
+    // da1 = conv(dz2, w2f) on the 16 x 16 region at offset -1, tap by tap and M-tile by
+    // M-tile as `wgmma` groups, one in flight while the next one's fragments are read.
+    // Under each tap's two groups the CUDA cores take conv1's three terms of that tap (its
+    // 3 input channels) for the same pixels, so that z1 = conv1(x) + b1 is summed as the
+    // forward kernel sums it: one fmaf chain from b1 over (dy, dx, ci).
+    float acc[2][32], z[2][32];  // acc: written by the `wgmma`s alone (tap 0 starts the sums)
+    uint32_t fr[2][4][4];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rx = gq + 8 * half;
-      const int gy = ty0 - 1 + ry;
-      const int gx = tx0 - 1 + rx;
-      if (gy < 0 || gy >= h || gx < 0 || gx >= wd) continue;
-      float xv[27];
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
+      for (int i = 0; i < 32; ++i) z[mt][i] = b1s[8 * (i >> 2) + 2 * t + (i & 1)];
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dxx = tap % 3;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) xv[dy * 9 + k] = xs[((ry + dy) * B_R2 + rx) * 3 + k];
+      for (int mt = 0; mt < 2; ++mt) {
+        const int ry = 8 * wg + 4 * mt + wi;
+        fp_load_a4(fr[mt], band_addr, (ry + dy) * B_R2 + r_lm + dxx, lane);
+        fp_wgmma_bf16_tap(acc[mt], fr[mt], w2_addr + tap * 8192, tap > 0);
+        if (mt == 0) fp_wgmma_wait<1>();  // group (tap - 1, 1) is done: fr[1] is free
+      }
+      // conv1's three terms of this tap for both m-tiles' pixels, each w1 pair read once
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int co = 32 * wn + 8 * nt + 2 * t;
-        float z0 = b1s[co], z1 = b1s[co + 1];
+      for (int ci = 0; ci < 3; ++ci) {
+        const int k = 3 * tap + ci;
+        float xv[2][2];
 #pragma unroll
-        for (int k = 0; k < 27; ++k) {
-          z0 = fmaf(xv[k], w1s[k * 64 + co], z0);
-          z1 = fmaf(xv[k], w1s[k * 64 + co + 1], z1);
+        for (int mt = 0; mt < 2; ++mt) {
+          const int p = (8 * wg + 4 * mt + wi + dy) * B_R2 + gq + dxx;
+          xv[mt][0] = xt[p * 3 + ci];
+          xv[mt][1] = xt[(p + 8) * 3 + ci];
         }
-        if (z0 > 0.f) keep |= 1ull << (16 * mt + 4 * nt + 2 * half);
-        if (z1 > 0.f) keep |= 1ull << (16 * mt + 4 * nt + 2 * half + 1);
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const float2 wv = *reinterpret_cast<const float2*>(w1s + k * 64 + 8 * jn + 2 * t);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            z[mt][4 * jn] = fmaf(xv[mt][0], wv.x, z[mt][4 * jn]);
+            z[mt][4 * jn + 1] = fmaf(xv[mt][0], wv.y, z[mt][4 * jn + 1]);
+            z[mt][4 * jn + 2] = fmaf(xv[mt][1], wv.x, z[mt][4 * jn + 2]);
+            z[mt][4 * jn + 3] = fmaf(xv[mt][1], wv.y, z[mt][4 * jn + 3]);
+          }
+        }
+      }
+      fp_wgmma_wait<1>();  // group (tap, 0) is done: fr[0] is free
+    }
+    fp_wgmma_wait<0>();
+    __syncthreads();  // every warp is done reading dz2
+
+    // dz1 = bf16(da1 * [z1 > 0]), zero outside the image, over dz2 at the region's own
+    // offset (rows and columns 0..15 of the band)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int ry = 8 * wg + 4 * mt + wi;
+      const int gy = tl.ty0 - 1 + ry;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rx = gq + 8 * hf;
+        const int gx = tl.tx0 - 1 + rx;
+        const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < wd;
+        const int p = ry * B_R2 + rx;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const int i = 4 * jn + 2 * hf;
+          const float v0 = inside && z[mt][i] > 0.f ? acc[mt][i] : 0.f;
+          const float v1 = inside && z[mt][i + 1] > 0.f ? acc[mt][i + 1] : 0.f;
+          *reinterpret_cast<uint32_t*>(band + p * 128 + ((jn ^ (p & 7)) << 4) + 4 * t) =
+              fp_pack_bf16x2(v0, v1);
+        }
       }
     }
-  }
-  float acc[4][4][4];
+    if (next < tiles) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  fp_bf16_taps<4, 4, 4>(acc, band + (4 * wm * B_R2 + gq) * S_KS + 2 * t, B_R2 * S_KS, B_R2, S_KS,
-                        w2s + (32 * wn + gq) * S_KS + 2 * t, S_KS, 64 * S_KS);
-  __syncthreads();  // every warp is done reading dz2
-
-  // dz1 = bf16(da1 * keep), over dz2 at the region's own offset (rows and columns 0..15)
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int bit = 16 * mt + 4 * nt + 2 * half;
-        const float v0 = (keep >> bit) & 1ull ? acc[mt][nt][2 * half] : 0.f;
-        const float v1 = (keep >> (bit + 1)) & 1ull ? acc[mt][nt][2 * half + 1] : 0.f;
-        const int p = (4 * wm + mt) * B_R2 + gq + 8 * half;
-        *reinterpret_cast<uint32_t*>(band + p * S_KS + 32 * wn + 8 * nt + 2 * t) = fp_pack_bf16x2(v0, v1);
+      for (int j = 0; j < (B_XS + SW_THREADS - 1) / SW_THREADS; ++j) {
+        const int i = tid + j * SW_THREADS;
+        if (i < B_XS) xs[(buf ^ 1) * B_XS + i] = __uint_as_float(xr[j] << 16);
       }
-  __syncthreads();
-
-  // dx = conv(dz1, w1f) on the 16 x 16 region (rows 2 warp, 2 warp + 1; N = 8, 3 used),
-  // of which the 14 x 14 tile is kept
-  float accx[2][1][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) accx[mt][0][i] = 0.f;
-  fp_bf16_taps<2, 1, 4>(accx, band + (2 * warp * B_R2 + gq) * S_KS + 2 * t, B_R2 * S_KS, B_R2, S_KS,
-                        w1fs + gq * S_KS + 2 * t, S_KS, 8 * S_KS);
-  if (t >= 2) return;  // output channels 2t, 2t + 1: only 0, 1, 2 exist
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int ry = 2 * warp + mt;
-    const int oy = ty0 + ry;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rx = gq + 8 * half;
-      const int ox = tx0 + rx;
-      if (ry >= B_TILE || rx >= B_TILE || oy >= h || ox >= wd) continue;
-      bf16* o = dx + (img + (int64_t)oy * wd + ox) * 3 + 2 * t;
-      o[0] = __float2bfloat16_rn(accx[mt][0][2 * half]);
-      if (t == 0) o[1] = __float2bfloat16_rn(accx[mt][0][2 * half + 1]);
     }
+    __syncthreads();  // dz1 complete
+
+    // dx = conv(dz1, w1f) on the 16 x 16 region at offset 0 (N = 8, 3 used), of which the
+    // 14 x 14 tile is kept; the same fragment walk as da1
+    float accx[2][4];  // written by the `wgmma`s alone
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int ry = 8 * wg + 4 * mt + wi;
+        fp_load_a4(fr[mt], band_addr, (ry + tap / 3) * B_R2 + r_lm + tap % 3, lane);
+        fp_wgmma_bf16_tap(accx[mt], fr[mt], w1f_addr + tap * 1024, tap > 0);
+        fp_wgmma_wait<1>();
+      }
+    }
+    fp_wgmma_wait<0>();
+    // accx[mt]: (row gq, ch 2t), (row gq, ch 2t + 1), (row gq + 8, ch 2t), (row gq + 8, ch 2t + 1)
+    if (t < 2) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int ry = 8 * wg + 4 * mt + wi;
+        const int oy = tl.ty0 + ry;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int rx = gq + 8 * hf;
+          const int ox = tl.tx0 + rx;
+          if (ry >= B_TILE || rx >= B_TILE || oy >= h || ox >= wd) continue;
+          bf16* o = dx + (tl.img + (int64_t)oy * wd + ox) * 3 + 2 * t;
+          o[0] = __float2bfloat16_rn(accx[mt][2 * hf]);
+          if (t == 0) o[1] = __float2bfloat16_rn(accx[mt][2 * hf + 1]);
+        }
+      }
+    }
+    tl = tn;
   }
 }
 
@@ -760,19 +893,23 @@ int fp_vgg_slice1_fwd_bf16(const bf16* x, const bf16* w1, const float* b1, const
   return (int)cudaGetLastError();
 }
 
-// g and a2 must be 16-byte aligned (64 channels a pixel).
+// g and a2 must be 16-byte aligned (64 channels a pixel).  One block an SM walks the tiles.
 int fp_vgg_slice1_bwd_bf16(const bf16* g, const bf16* a2, const bf16* x, const bf16* w1,
                            const float* b1, const bf16* w1fp, const bf16* w2fp, bf16* dx, int n,
                            int h, int wd, void* stream) {
-  if (n <= 0 || h <= 0 || wd <= 0 || n > 65535 ||
+  if (n <= 0 || h <= 0 || wd <= 0 ||
       ((reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(a2)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(slice1_bwd_bf16_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SB_BYTES);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SW_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = ((h + B_TILE - 1) / B_TILE) * ((wd + B_TILE - 1) / B_TILE);
-  slice1_bwd_bf16_kernel<<<dim3(tiles, 1, n), S_THREADS, SB_BYTES, (cudaStream_t)stream>>>(
-      g, a2, x, w1, b1, w1fp, w2fp, dx, h, wd);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  const int64_t tiles = (int64_t)n * ((h + B_TILE - 1) / B_TILE) * ((wd + B_TILE - 1) / B_TILE);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  slice1_bwd_bf16_kernel<<<grid, SW_THREADS, SW_BYTES, (cudaStream_t)stream>>>(
+      g, a2, x, w1, b1, w1fp, w2fp, dx, h, wd, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 """The three-pass TF32 split and the weight packing of the tensor-core kernels
-(float32: TF32 hi/lo tiles; bfloat16: plain bf16 tiles).
+(float32: TF32 hi/lo tiles; bfloat16: plain bf16 tiles, and the 64-channel
+128-byte-swizzled tiles of the bf16 ``wgmma`` kernels).
 
 The tensor cores have no float32 product.  ``csrc/tc_tile.cuh`` therefore
 splits both operands, ``a = a_hi + a_lo`` with ``a_hi = tf32(a)`` and
@@ -98,6 +99,47 @@ def pack_conv_weights_bf16(w_hwio: torch.Tensor, n_tile: int) -> torch.Tensor:
     return w.to(torch.bfloat16).contiguous()
 
 
+KC_SW128 = 64  # input channels per chunk of the bf16 `wgmma` packing: one 128-byte row of bf16
+
+
+def swizzle128_index(n_tile: int, device=None) -> torch.Tensor:
+    """Position (in bf16 elements) of element [row, k] inside a [n_tile, 64]
+    tile stored in the 128-byte swizzle: 16-byte chunk index XOR (row % 8)."""
+    row = torch.arange(n_tile, device=device)[:, None]
+    k = torch.arange(KC_SW128, device=device)[None, :]
+    return row * KC_SW128 + (((k // 8) ^ (row % 8)) * 8 + k % 8)
+
+
+def pack_conv_weights_sw128(w_hwio: torch.Tensor, n_tile: int) -> torch.Tensor:
+    """HWIO [3, 3, C_in, C_out] -> [C_out tiles, C_in / 64, 9 taps, n_tile, 64]
+    bfloat16 (rounded to nearest even): K-major rows (one out-channel each,
+    zero rows up to a multiple of ``n_tile``), channels in their own order,
+    every [n_tile, 64] tile in the 128-byte swizzle, so that one (chunk, tap)
+    stage is the image a ``wgmma`` descriptor reads (``csrc/tc_tile.cuh``,
+    bf16 ``wgmma`` route)."""
+    _, _, cin, cout = w_hwio.shape
+    if cin % KC_SW128 or n_tile % 8:
+        raise ValueError(f"pack_conv_weights_sw128: C_in {cin} % {KC_SW128} or n_tile {n_tile} % 8 is not 0")
+    n_tiles = -(-cout // n_tile)
+    w = F.pad(w_hwio.reshape(9, cin, cout).to(torch.float32), (0, n_tiles * n_tile - cout))
+    # [tap, chunk, k, tile, n] -> [tile, chunk, tap, n, k]
+    w = w.reshape(9, cin // KC_SW128, KC_SW128, n_tiles, n_tile).permute(3, 1, 0, 4, 2)
+    tiles = w.to(torch.bfloat16).reshape(-1, n_tile * KC_SW128)
+    out = torch.empty_like(tiles)
+    out[:, swizzle128_index(n_tile, w.device).reshape(-1)] = tiles
+    return out.reshape(n_tiles, cin // KC_SW128, 9, n_tile, KC_SW128)
+
+
+def unpack_conv_weights_sw128(packed: torch.Tensor, cout: int) -> torch.Tensor:
+    """Inverse of :func:`pack_conv_weights_sw128`: HWIO [3, 3, C_in, cout] bf16."""
+    n_tiles, nchunks, _, n_tile, _ = packed.shape
+    tiles = packed.reshape(-1, n_tile * KC_SW128)[:, swizzle128_index(n_tile, packed.device).reshape(-1)]
+    w = tiles.reshape(n_tiles, nchunks, 9, n_tile, KC_SW128)
+    # [tile, chunk, tap, n, k] -> [tap, chunk, k, tile, n]
+    w = w.permute(2, 1, 4, 0, 3).reshape(3, 3, nchunks * KC_SW128, n_tiles * n_tile)
+    return w[..., :cout].contiguous()
+
+
 def unpack_conv_weights(packed: torch.Tensor, cout: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inverse of :func:`pack_conv_weights`: (hi, lo) as HWIO [3, 3, C_in, cout]."""
     n_tiles, nchunks, _, _, n_tile, _ = packed.shape
@@ -111,19 +153,20 @@ def unpack_conv_weights(packed: torch.Tensor, cout: int) -> Tuple[torch.Tensor, 
     return w[0].contiguous(), w[1].contiguous()
 
 
-_PACKED: Dict[Tuple[int, int, bool, torch.dtype], Tuple[weakref.ref, int, torch.Tensor]] = {}
+_PACKED: Dict[Tuple[int, int, bool, torch.dtype, bool], Tuple[weakref.ref, int, torch.Tensor]] = {}
 pack_count = 0  # packings done so far: a run can show that none happens per call
 
 
 def packed_weights(w_hwio: torch.Tensor, n_tile: int, flip: bool = False,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   dtype: torch.dtype = torch.float32, sw128: bool = False) -> torch.Tensor:
     """Packed (and, with ``flip``, adjoint) weights of ``w_hwio`` for the kernel
     of ``dtype`` (float32: :func:`pack_conv_weights`; bfloat16:
-    :func:`pack_conv_weights_bf16`), computed on first use and again only
-    after the tensor was changed in place (its ``_version`` moved) or another
-    tensor took its place."""
+    :func:`pack_conv_weights_bf16`, or with ``sw128`` the swizzled 64-channel
+    tiles of the bf16 ``wgmma`` kernels, :func:`pack_conv_weights_sw128`),
+    computed on first use and again only after the tensor was changed in place
+    (its ``_version`` moved) or another tensor took its place."""
     global pack_count
-    key = (id(w_hwio), n_tile, flip, dtype)
+    key = (id(w_hwio), n_tile, flip, dtype, sw128)
     hit = _PACKED.get(key)
     if hit is not None and hit[0]() is w_hwio and hit[1] == w_hwio._version:
         return hit[2]
@@ -131,7 +174,10 @@ def packed_weights(w_hwio: torch.Tensor, n_tile: int, flip: bool = False,
         del _PACKED[k]
     with torch.no_grad():
         w = w_hwio.detach()
-        pack = pack_conv_weights_bf16 if dtype == torch.bfloat16 else pack_conv_weights
+        if dtype != torch.bfloat16:
+            pack = pack_conv_weights
+        else:
+            pack = pack_conv_weights_sw128 if sw128 else pack_conv_weights_bf16
         packed = pack(flip_io(w) if flip else w.contiguous(), n_tile)
     pack_count += 1
     _PACKED[key] = (weakref.ref(w_hwio), w_hwio._version, packed)

@@ -4,9 +4,10 @@ Counterpart of the reference's ``ops/vgg_pallas.py::conv3x3_relu``:
 ``relu(conv2d(x, w, stride 1, pad 1) + b)`` on NHWC with HWIO weights and
 C_in == C_out.  The kernel is an implicit GEMM on the tensor cores with the
 three-pass TF32 split (float32 accuracy); a bfloat16 ``x`` goes to its bf16
-variant (``conv3x3_relu_bf16``: one pass of bf16 products, float32 sums, the
-float32 bias added before the one rounding).  Both read the weights packed by
-``ops/tf32.py`` (float32 parameters, rounded to bf16 for the bf16 variant),
+variant (``conv3x3_relu_bf16``: one pass of bf16 ``wgmma`` products, float32
+sums, the float32 bias added before the one rounding).  Both read the weights
+packed by ``ops/tf32.py`` (float32 parameters, rounded to bf16 and swizzled in
+64-channel tiles for the bf16 variant),
 which happens once per weight tensor and dtype, not per call.  The
 backward's dx runs through the same kernel (no bias, no ReLU) on the
 ReLU-masked cotangent with the packed adjoint (spatially flipped,
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from ._cuda import INT, PTR, Kernel, by_dtype, check_cuda_operands, register, widen
 from .tf32 import packed_weights
 
-N_TILE = 64  # output channels per block of csrc/conv3x3.cu
+N_TILE = 64  # output channels per block of csrc/conv3x3.cu's float32 kernel
 
 CONV3X3 = register(Kernel(
     "conv3x3_relu", "fp_conv3x3_f32", [PTR, PTR, PTR, PTR] + [INT] * 5,
@@ -63,7 +64,10 @@ def conv3x3_launch(x: torch.Tensor, w_hwio: torch.Tensor, bias, relu: bool,
         raise ValueError(f"conv3x3_relu: weight {tuple(w_hwio.shape)} does not fit C={c}")
     if c % 64:
         raise ValueError(f"conv3x3_relu: the CUDA kernel takes C % 64 == 0, got C={c}")
-    wp = packed_weights(w_hwio, N_TILE, flip, dtype)
+    if dtype == torch.bfloat16:  # the bf16 kernel's N tile: 128 channels, or 64 where C % 128 == 64
+        wp = packed_weights(w_hwio, 128 if c % 128 == 0 else 64, flip, dtype, sw128=True)
+    else:
+        wp = packed_weights(w_hwio, N_TILE, flip, dtype)
     b = None if bias is None else bias.float()
     y = torch.empty_like(x)
     by_dtype(dtype, CONV3X3, CONV3X3_BF16)(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),

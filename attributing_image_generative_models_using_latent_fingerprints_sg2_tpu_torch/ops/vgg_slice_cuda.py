@@ -7,7 +7,8 @@ recomputing conv1's sign.  The forward's 64 -> 64 conv and the backward's two
 adjoint convs run on the tensor cores (three-pass TF32 split, float32
 accuracy) from weights packed once per weight tensor by ``ops/tf32.py``.  A
 bfloat16 ``x`` goes to the bf16 variants (``vgg_slice1_fwd_bf16``,
-``vgg_slice1_bwd_bf16``): one pass of bf16 products with float32 sums, the
+``vgg_slice1_bwd_bf16``, the latter on ``wgmma`` with its weights resident in
+each block of a persistent grid): one pass of bf16 products with float32 sums, the
 float32 biases added before each rounding, ``relu1_1`` and dz1 rounded to bf16
 where the reference's TPU kernel rounds them.  dw and db are computed in plain
 PyTorch, and only when asked for.
@@ -74,7 +75,8 @@ def slice1_backward_launch(g, a2, x, w1, b1, w2) -> torch.Tensor:
     dtype = check_cuda_operands("vgg_slice1", g, a2, x)
     check_cuda_operands("vgg_slice1", w1, b1, w2)
     _check_shapes(x, w1, w2)
-    w1fp, w2fp = packed_weights(w1, 8, True, dtype), packed_weights(w2, 64, True, dtype)
+    sw128 = dtype == torch.bfloat16  # the bf16 kernel's `wgmma` tiles
+    w1fp, w2fp = packed_weights(w1, 8, True, dtype, sw128), packed_weights(w2, 64, True, dtype, sw128)
     n, h, w, _ = x.shape
     dx = torch.empty_like(x)
     args = (g, a2, x, w1.to(dtype), b1.float(), w1fp, w2fp, dx)

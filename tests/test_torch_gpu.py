@@ -382,6 +382,79 @@ def test_vgg_slice1_bf16_kernel(cuda, h, w, seed):
     assert counts["vgg_slice1_fwd_bf16"] == 1 and counts["vgg_slice1_bwd_bf16"] == 1
 
 
+# (C, N, H, W) for the bf16 `wgmma` conv: ragged H and W (not multiples of the 8- or
+# 16-row tile, nor of its 16 columns).  The first two give the launch its 16 x 16 x 128
+# tiles (N * ceil(H / 16) * ceil(W / 16) * C / 128 at least the SM count, 132 on an H100),
+# the next two its 8 x 16 x 128 ones, the last two 8 x 16 x 64 ones (C = 64, C % 128 ==
+# 64).  The persistent blocks (one an SM, two for the 64-channel tiles) take two tiles
+# where there are more tiles than blocks (144, 144 and 256 tiles on 132 blocks, 320 on
+# 264), one or none where there are fewer (32 on 132, 216 on 264).
+CONV_BF16_GRID_CASES = [(512, 9, 29, 29), (128, 36, 20, 30), (512, 32, 16, 16), (512, 2, 9, 17),
+                        (64, 40, 29, 21), (192, 8, 23, 37)]
+
+
+@pytest.mark.parametrize("c,n,h,w", CONV_BF16_GRID_CASES)
+def test_conv3x3_relu_bf16_launch_at_both_tilings(cuda, c, n, h, w):
+    """The launch alone, forward (bias + ReLU) and the adjoint pass, against the
+    plain bf16 conv and against the float32 plain conv on the same bf16 inputs."""
+    wt, b = _conv_inputs(cuda, c, 1, 1)[:2]
+    x = _bf(_rand(n, h, w, c, seed=8).to(cuda))
+    cot = _bf(_rand(n, h, w, c, seed=9).to(cuda))
+    _cuda.reset_launches()
+    y = vgg_cuda.conv3x3_launch(x, wt, b, relu=True)
+    dx = vgg_cuda.conv3x3_launch(cot, wt, None, relu=False, flip=True)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["conv3x3_relu_bf16"] == 2
+    _close_bf16(y, vgg_cuda.conv3x3_relu_plain(x, wt, b))
+    _close_bf16(dx, _adjoint_plain(cot, wt))
+    y32 = vgg_cuda.conv3x3_relu_plain(x.float(), wt.to(torch.bfloat16).float(), b)
+    assert (y.float() - y32).abs().max().item() < BF16_TOL * y32.abs().max().item()
+
+
+@pytest.mark.parametrize("c,n,h,w", [(64, 2, 13, 22), (512, 9, 29, 29)])
+def test_conv3x3_relu_bf16_autograd_on_the_card_matches_the_cpu(cuda, c, n, h, w):
+    """``conv3x3_relu`` forward and backward (dx, dw, db) in bf16 on the card
+    against the same function on the CPU, where it runs its plain version.  The
+    two ReLU masks may differ where an output is within rounding of zero: the
+    3x3 neighbourhoods of those pixels are left out of dx (and counted)."""
+    wt, b = (t.cpu() for t in _conv_inputs(cuda, c, 1, 1)[:2])
+    x, cot = _bf(_rand(n, h, w, c, seed=10)), _bf(_rand(n, h, w, c, seed=11))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        xv, wv, bv = (t.to(dev).requires_grad_(True) for t in (x, wt, b))
+        y = vgg_cuda.conv3x3_relu(xv, wv, bv)
+        outs[dev] = (y.detach(), *torch.autograd.grad(y, (xv, wv, bv), cot.to(dev)))
+    (yc, dxc, dwc, dbc), (yg, dxg, dwg, dbg) = outs["cpu"], (t.cpu() for t in outs["cuda"])
+    _close_bf16(yg, yc)
+    flips = ((yg > 0) != (yc > 0)).any(dim=-1, keepdim=True).float().permute(0, 3, 1, 2)
+    keep = ~(torch.nn.functional.max_pool2d(flips, 3, stride=1, padding=1).permute(0, 2, 3, 1) > 0)
+    assert keep.float().mean().item() > 0.99
+    _close_bf16(dxg * keep, dxc * keep)
+    for got, want in ((dwg, dwc), (dbg, dbc)):
+        assert got.dtype == want.dtype == torch.float32
+        assert (got - want).abs().max().item() < BF16_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("n,h,w", [(24, 29, 43), (11, 14, 14)])
+def test_vgg_slice1_bf16_backward_walks_many_tiles_a_block(cuda, n, h, w):
+    """The persistent backward at batches whose tile count (288, 11) is above and
+    below the number of blocks (one an SM): every block takes several tiles, or
+    some blocks none.  Against autograd of the plain bf16 slice, conv1's sign
+    neighbourhoods left out."""
+    ws = _slice_weights(cuda)
+    x = _bf(_rand(n, h, w, 3, seed=12).to(cuda)).requires_grad_(True)
+    cot = _bf(_rand(n, h, w, 64, seed=13).to(cuda))
+    yp = vgg_slice_cuda.vgg_slice1_plain(x, *ws)
+    (want,) = torch.autograd.grad(yp, x, cot)
+    _cuda.reset_launches()
+    got = vgg_slice_cuda.slice1_backward_launch(cot, yp.detach(), x.detach(), ws[0], ws[1], ws[2])
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["vgg_slice1_bwd_bf16"] == 1
+    keep = _slice_keep(x, ws)
+    assert keep.float().mean().item() > 0.99
+    _close_bf16(got * keep, want * keep)
+
+
 def test_launches_are_counted(cuda):
     _cuda.reset_launches()
     upfirdn2d_cuda.upblur4(torch.zeros(1, 4, 4, 3, device=cuda), K1)

@@ -93,9 +93,28 @@ def test_tf32_round_ties_away_from_zero():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cin,cout,n_tile", [(64, 64, 64), (128, 128, 64), (64, 3, 8)])
-def test_pack_round_trips_and_flipped_form_is_flip_io(cin, cout, n_tile):
+@pytest.mark.parametrize("cin,cout,n_tile,layout", [
+    pytest.param(64, 64, 64, "tf32", id="64-64-64"),
+    pytest.param(128, 128, 64, "tf32", id="128-128-64"),
+    pytest.param(64, 3, 8, "tf32", id="64-3-8"),
+    # the bf16 `wgmma` kernels' swizzled 64-channel tiles: the conv's two N tiles, and
+    # the slice backward's adjoint w2 and w1
+    pytest.param(128, 128, 128, "sw128", id="sw128-128-128-128"),
+    pytest.param(192, 192, 64, "sw128", id="sw128-192-192-64"),
+    pytest.param(64, 64, 64, "sw128", id="sw128-64-64-64"),
+    pytest.param(64, 3, 8, "sw128", id="sw128-64-3-8"),
+])
+def test_pack_round_trips_and_flipped_form_is_flip_io(cin, cout, n_tile, layout):
     w = torch.from_numpy(_rand((3, 3, cin, cout), 20))
+    if layout == "sw128":
+        packed = tf32.pack_conv_weights_sw128(w, n_tile)
+        assert packed.shape == (-(-cout // n_tile), cin // 64, 9, n_tile, 64) and packed.dtype == torch.bfloat16
+        assert torch.equal(tf32.unpack_conv_weights_sw128(packed, cout), w.to(torch.bfloat16))
+        # the backward's packing: packed_weights(v, flip=True) of the v whose adjoint w is
+        v = tf32.flip_io(w)
+        adj = tf32.packed_weights(v, n_tile, flip=True, dtype=torch.bfloat16, sw128=True)
+        assert torch.equal(tf32.unpack_conv_weights_sw128(adj, cout), w.to(torch.bfloat16))
+        return
     packed = tf32.pack_conv_weights(w, n_tile)
     assert packed.shape == (-(-cout // n_tile), cin // 32, 9, 2, n_tile, 32)
     hi, lo = tf32.unpack_conv_weights(packed, cout)
@@ -129,6 +148,62 @@ def test_packed_tile_read_as_the_kernel_reads_it():
     assert torch.allclose(got, want, atol=1e-5)
 
 
+@pytest.mark.parametrize("cin,cout,n_tile,chunk,tap", [
+    (128, 128, 128, 1, 4),   # conv3x3_relu_bf16, C % 128 == 0
+    (192, 192, 64, 2, 7),    # conv3x3_relu_bf16, C % 128 == 64
+    (64, 64, 64, 0, 8),      # vgg_slice1_bwd_bf16: adjoint w2
+    (64, 3, 8, 0, 2),        # vgg_slice1_bwd_bf16: adjoint w1, N padded to 8
+])
+def test_sw128_stage_read_as_the_descriptor_reads_it(cin, cout, n_tile, chunk, tap):
+    """One (chunk, tap) stage of the bf16 `wgmma` packing read back as the B
+    descriptor reads it: row n of the [n_tile][64] tile, k-step s the 32 bytes
+    at 2 s units of the address field past the row's start, 16-byte chunk
+    index XOR n % 8 (the 128-byte swizzle), every 8 rows 1024 bytes on."""
+    w = torch.from_numpy(_rand((3, 3, cin, cout), 24))
+    packed = tf32.pack_conv_weights_sw128(w, n_tile)
+    stage = packed[-1, chunk, tap].reshape(-1).float()  # the bytes of one ring stage, last N tile
+    n0 = (packed.shape[0] - 1) * n_tile
+    px = torch.from_numpy(_rand((64,), 25))
+    rows = min(n_tile, cout - n0)
+    want = w.to(torch.bfloat16).float().reshape(9, cin, cout)[tap, 64 * chunk:64 * chunk + 64, n0:n0 + rows].T @ px
+    # row n, k-step s (32 bytes = two 16-byte chunks `half`), element e of the chunk
+    n, s, half, e = torch.meshgrid(torch.arange(n_tile), torch.arange(4), torch.arange(2), torch.arange(8),
+                                   indexing="ij")
+    byte = (n // 8) * 1024 + (n % 8) * 128 + (((2 * s + half) ^ (n % 8)) * 16) + 2 * e
+    got = (stage[byte // 2] * px[16 * s + 8 * half + e]).sum(dim=(1, 2, 3))
+    assert torch.allclose(got[:rows], want, atol=1e-5) and not got[rows:].any()
+
+
+@pytest.mark.parametrize("band_w,rows,tap", [(18, 8, 4), (18, 8, 8), (18, 16, 0), (18, 16, 5)])
+def test_band_fragments_read_as_ldmatrix_reads_them(band_w, rows, tap):
+    """The A side of the bf16 `wgmma` kernels: a band of 64-channel pixels in the
+    128-byte swizzle (``fp_sw128``: pixel p's 16-byte chunk q at 128 p + 16 (q ^
+    p % 8)), lane l of a warp naming pixel (l % 16) of its row at the tap's shift
+    and chunk 2 s + l / 16 for ``ldmatrix.x4``; matrix j = lanes 8 j .. 8 j + 7
+    gives thread (g, t) its register j.  The registers must be the `wgmma` A
+    fragment of that row of pixels: (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8,
+    2t + 8) and the next channel of each."""
+    pix = (rows + 2) * band_w
+    vals = torch.arange(pix * 64, dtype=torch.float32).reshape(pix, 64)
+    band = torch.empty(pix * 64)
+    for p in range(pix):
+        for q in range(8):
+            band[p * 64 + 8 * (q ^ (p % 8)):p * 64 + 8 * (q ^ (p % 8)) + 8] = vals[p, 8 * q:8 * q + 8]
+    dy, dx = divmod(tap, 3)
+    for row in (0, rows - 1):          # a warp's tile row
+        for s in range(4):
+            addr = []
+            for lane in range(32):
+                p = (row + dy) * band_w + lane % 16 + dx
+                addr.append(p * 64 + 8 * ((2 * s + lane // 16) ^ (p % 8)))
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                regs = [band[addr[8 * j + g] + 2 * t:addr[8 * j + g] + 2 * t + 2] for j in range(4)]
+                for j, (m, kk) in enumerate(((g, 0), (g + 8, 0), (g, 8), (g + 8, 8))):
+                    p = (row + dy) * band_w + m + dx
+                    assert torch.equal(regs[j], vals[p, 16 * s + kk + 2 * t:16 * s + kk + 2 * t + 2])
+
+
 def test_packed_weights_are_cached_until_the_tensor_changes():
     w = torch.from_numpy(_rand((3, 3, 64, 64), 23))
     before = tf32.pack_count
@@ -141,6 +216,13 @@ def test_packed_weights_are_cached_until_the_tensor_changes():
     other = w.clone()  # another tensor with the same values is packed on its own
     tf32.packed_weights(other, 64)
     assert tf32.pack_count == before + 3
+    # the bf16 layouts of one tensor are cached apart: the slice forward's rows and the
+    # `wgmma` kernels' swizzled tiles
+    rows = tf32.packed_weights(w, 64, dtype=torch.bfloat16)
+    sw = tf32.packed_weights(w, 64, dtype=torch.bfloat16, sw128=True)
+    assert rows.shape == (1, 2, 9, 64, 32) and sw.shape == (1, 1, 9, 64, 64)
+    assert tf32.packed_weights(w, 64, dtype=torch.bfloat16, sw128=True) is sw
+    assert tf32.pack_count == before + 5
 
 
 # ---------------------------------------------------------------------------
