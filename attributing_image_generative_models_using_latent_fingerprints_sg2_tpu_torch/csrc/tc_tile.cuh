@@ -86,6 +86,31 @@ __device__ __forceinline__ void fp_bulk_load(void* dst, const void* src, uint32_
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from shared to global memory, in this thread's current bulk
+// group: the generic-proxy writes to `src` must be fenced (fp_fence_proxy_async) first.
+__device__ __forceinline__ void fp_bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(fp_smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void fp_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's bulk groups but the last N have read their shared memory.
+template <int N>
+__device__ __forceinline__ void fp_bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... and have completed.
+template <int N>
+__device__ __forceinline__ void fp_bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Order this thread's shared-memory writes before later async-proxy reads of them.
+__device__ __forceinline__ void fp_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- ring of weight stages ----
 // Items 0, 1, 2, ... (one tap x one channel chunk of packed weights each,
 // `bytes` long and contiguous in global memory) pass through `stages` slots.
@@ -245,81 +270,7 @@ __device__ __forceinline__ void fp_tc_tap(const float* __restrict__ px0,
   fp_wgmma_wait<1>();  // this call's first group is done: fa is free
 }
 
-// ---- bfloat16 route: mma.sync.m16n8k16, one pass ----
-//
-// The bf16 variants of the three tensor-core kernels need no split: a bf16
-// product is exact in the float32 accumulator, so one pass of bf16 products
-// replaces the three TF32 ones (bound: flops / 989 TFLOP/s).  The slice
-// forward's (slice1_fwd_bf16_kernel) uses the warp-level
-// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`, with both operands
-// read from shared memory as 32-bit words (the conv and the slice backward
-// take the `wgmma` route at the end of this file):
-//   A (16 pixels x 16 channels): the band [pixel][KS bf16], thread (g, t) reads
-//     channels 2t, 2t + 1 and 2t + 8, 2t + 9 of pixels g and g + 8;
-//   B (16 channels x 8 out-channels): the weights [tap][n][KS bf16], K-major,
-//     thread (g, t) reads channels 2t, 2t + 1 and 2t + 8, 2t + 9 of row n = g.
-// With a row stride of KS = 8 (mod 16) bf16, i.e. 4 (mod 8) words, the 32
-// lanes of a fragment load hit 32 distinct banks.
-//   D (16 x 8 float32): thread (g, t) holds [g][2t], [g][2t + 1], [g + 8][2t],
-//     [g + 8][2t + 1].
-
 #include <cuda_bf16.h>
-
-__device__ __forceinline__ void fp_mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                            const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t fp_lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc[mt][nt] += sum over the 9 taps and KSTEPS x 16 channels of A(tap) x B(tap).
-//   a    the band at the thread's pixel g of m-tile 0 at tap (0, 0), plus channel 2t;
-//        m-tile mt starts `a_mt` elements further, pixel g + 8 is 8 pixels on, a tap
-//        (dy, dx) is dy band rows of `band_w` pixels and dx pixels on; pixels are
-//        `ks` elements apart
-//   b    the weights at row n0 + g of tap 0, plus channel 2t; n-tile nt starts
-//        8 rows of `ksw` elements further, tap i `b_tap` elements further
-template <int MT, int NT, int KSTEPS>
-__device__ __forceinline__ void fp_bf16_taps(float (&acc)[MT][NT][4],
-                                             const __nv_bfloat16* __restrict__ a, int a_mt,
-                                             int band_w, int ks,
-                                             const __nv_bfloat16* __restrict__ b, int ksw,
-                                             int b_tap) {
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const __nv_bfloat16* at = a + ((tap / 3) * band_w + tap % 3) * ks;
-    const __nv_bfloat16* bt = b + tap * b_tap;
-#pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
-      uint32_t fa[MT][4], fb[NT][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const __nv_bfloat16* p0 = at + mt * a_mt + 16 * s;
-        const __nv_bfloat16* p1 = p0 + 8 * ks;
-        fa[mt][0] = fp_lds32(p0);
-        fa[mt][1] = fp_lds32(p1);
-        fa[mt][2] = fp_lds32(p0 + 8);
-        fa[mt][3] = fp_lds32(p1 + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* q = bt + nt * 8 * ksw + 16 * s;
-        fb[nt][0] = fp_lds32(q);
-        fb[nt][1] = fp_lds32(q + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) fp_mma_bf16(acc[mt][nt], fa[mt], fb[nt]);
-    }
-  }
-}
 
 // Two floats rounded to bf16 (nearest even) and packed, the first in the low half.
 __device__ __forceinline__ uint32_t fp_pack_bf16x2(float lo, float hi) {
@@ -327,15 +278,8 @@ __device__ __forceinline__ uint32_t fp_pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void fp_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fp_cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ---- bfloat16 route on `wgmma` (conv3x3_bf16_kernel, slice1_bwd_bf16_kernel) ----
+// ---- bfloat16 route on `wgmma` (conv3x3_bf16_kernel, slice1_fwd_bf16_kernel,
+// slice1_bwd_bf16_kernel) ----
 //
 // One pass of `wgmma.mma_async.m64nNk16.f32.bf16.bf16`: a bf16 product is exact
 // in the float32 accumulator, so no split.

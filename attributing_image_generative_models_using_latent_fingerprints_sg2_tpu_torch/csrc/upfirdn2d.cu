@@ -52,17 +52,43 @@
 //     gathers its 4 x 4 window of the cotangent.  The cotangent of `rgb` is the
 //     incoming one itself, so the fused backward is this one launch.
 //
-// bfloat16 variants (blur4_bf16, upblur4_bf16, upblur4_adj_bf16): the same
-// templates instantiated on __nv_bfloat16, as the TPU kernels keep their
-// scratch in x.dtype and read and write the activation dtype.  Taps and sums
-// stay float; each output is rounded to bf16 once, on store (round to nearest
-// even).  blur4 reads 16 bytes = 8 bf16 channels a thread where C % 8 == 0 and
-// both pointers are 16-byte aligned, else one channel a thread.  Half the
-// bytes of the float32 kernels: the bound halves, the arithmetic does not.
+// bfloat16 variants (blur4_bf16, upblur4_bf16, upblur4_adj_bf16), as the TPU
+// kernels keep their scratch in x.dtype and read and write the activation
+// dtype: taps and sums stay float; each output is rounded to bf16 once, on store
+// (round to nearest even).  upblur4 and its adjoint are the templates above on
+// __nv_bfloat16; so is blur4 where C % 8 != 0 or a pointer is off the 16-byte
+// grid (one channel a thread).  Otherwise blur4_bf16 has a kernel of its own,
+// blur4_ring_bf16_kernel: the float32 template on bf16 (8 channels a 16-byte
+// load) had half the float32 launch's threads for half its bytes, so half the
+// bytes in flight, and ran no faster than the float32 kernel (0.89 ms against a
+// 0.30 ms byte bound at batch 16).  Its input rows come through a shared-memory
+// ring of bulk async copies instead, so the bytes in flight follow the ring's
+// depth, not the thread count:
+//   - a block owns TW output columns x CC channels (NV 16-byte vectors; NV * TW
+//     <= 256 consumer threads, a thread one vector of one column) x a strip of
+//     output rows;
+//   - its input rows, TW + 3 pixels x CC channels each, pass through BR_STAGES
+//     shared stages, filled by a producer warp of its own: it issues a row's
+//     copies (`cp.async.bulk`, completion counted on the stage's `full`
+//     mbarrier) once every consumer warp has released the stage's previous row
+//     (its `empty` mbarrier); one copy a row where CC == C (the segment is
+//     contiguous in NHWC), else one a pixel.  Only in-image pixels are copied:
+//     a thread reads pixels outside the image, and rows outside it, as zero,
+//     so every pad takes the same path.  No tensor map is built on the host:
+//     1-D copies need none;
+//   - per row the thread reads its 4 taps from shared memory and sums them left
+//     to right; the 4-row window of those sums stays in registers for the
+//     vertical sum, top to bottom (the order of blur4_kernel, and of
+//     ops/upfirdn2d_cuda.py::blur4_strips); 16-byte stores;
+//   - strips of up to 64 rows (3 halo rows re-read per strip), shorter while
+//     the launch has fewer than BR_BLOCKS_PER_SM blocks for each SM, and equal
+//     in length (an output of 65 rows is two strips of 33 and 32, not 64 + 1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -98,29 +124,6 @@ struct VecIo<float, 4> {
   }
   static __device__ __forceinline__ void store(float* p, const Vec<4>& a) {
     *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-  }
-};
-template <>
-struct VecIo<bf16, 8> {
-  static __device__ __forceinline__ Vec<8> load(const bf16* p) {
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t w[4] = {t.x, t.y, t.z, t.w};
-    Vec<8> a;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a.v[2 * i] = __uint_as_float(w[i] << 16);
-      a.v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-    return a;
-  }
-  static __device__ __forceinline__ void store(bf16* p, const Vec<8>& a) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(a.v[2 * i], a.v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
 template <class T>
@@ -210,6 +213,164 @@ cudaError_t blur4_launch(const T* x, T* y, int n, int h, int w, int c, int oh, i
   dim3 grid(tiles * cgroups, (oh + rows - 1) / rows, n);
   blur4_kernel<T, V><<<grid, dim3(bx, by), 0, stream>>>(x, y, h, w, c, oh, ow, py0, px0, rows, cgroups,
                                                          fy, fx);
+  return cudaGetLastError();
+}
+
+constexpr int BR_THREADS = 256;        // consumer threads at most; a producer warp comes on top
+constexpr int BR_STAGES = 8;           // input rows in the ring (12 and 16 stages were no faster)
+constexpr int BR_BLOCKS_PER_SM = 3;    // the row strips are cut until the launch has this many blocks an SM
+constexpr int BR_MAX_NV = 32;          // 16-byte vectors of a pixel a block takes at most
+// a stage is (256 / nv + 3) x 16 nv bytes, at most 4096 + 48 nv: the ring fits the 48 KB a
+// launch may take without raising its limit
+static_assert(BR_STAGES * (16 * BR_THREADS + 48 * BR_MAX_NV) + 16 * BR_STAGES <= 48 * 1024, "shared memory");
+
+// 8 bf16 (one 16-byte piece) as floats, exactly
+__device__ __forceinline__ Vec<8> unpack_bf16x8(uint4 t) {
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+  Vec<8> a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a.v[2 * i] = __uint_as_float(w[i] << 16);
+    a.v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+  return a;
+}
+
+// blur4_kernel's function for bf16 with C % 8 == 0 and 16-byte aligned pointers.
+//   blockDim.x  consumer warps (thread i < nv * tw is vector i % nv of output column i / nv
+//               of the tile), then the producer warp
+//   blockIdx.x  column tile * chunks + channel chunk (of 8 nv channels); blockIdx.y row strip
+//               of `rows` output rows; blockIdx.z image
+// Shared memory: BR_STAGES stages of (tw + 3) pixels x 16 nv bytes, then full[] and empty[].
+__global__ void __launch_bounds__(BR_THREADS + 32, 2)
+    blur4_ring_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int h, int w, int c, int oh,
+                           int ow, int py0, int px0, int rows, int nv, int tw, Taps4 fy, Taps4 fx) {
+  extern __shared__ __align__(16) uint8_t smem_br[];
+  const int cc = 8 * nv;                         // channels of the block
+  const int chunks = c / cc;
+  const int pix_bytes = 2 * cc;
+  const int stage_bytes = (tw + 3) * pix_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_br + BR_STAGES * stage_bytes);
+  uint64_t* empty = full + BR_STAGES;
+
+  const int ncons = blockDim.x - 32;             // consumer threads, a multiple of 32
+  const int c0 = (blockIdx.x % chunks) * cc;
+  const int ix0 = (blockIdx.x / chunks) * tw - px0;  // input column of the stage's pixel 0
+  const int oy0 = blockIdx.y * rows;
+  const int nin = min(rows, oh - oy0) + 3;           // input rows of the strip
+  const int iy0 = oy0 - py0;
+  const int64_t img = (int64_t)blockIdx.z * h;
+
+  if (threadIdx.x == 0) fp_ring_init(full, empty, BR_STAGES, ncons / 32);
+  __syncthreads();
+
+  if (threadIdx.x >= ncons) {
+    // the producer warp: input row q of the strip into stage q % BR_STAGES once every consumer
+    // warp has released the stage's last row; only the stage's in-image pixels [pa, pb)
+    const int lane = threadIdx.x & 31;
+    const int pa = max(0, -ix0), pb = min(tw + 3, w - ix0);
+    for (int q = 0; q < nin; ++q) {
+      const int s = q % BR_STAGES;
+      const int iy = iy0 + q;
+      const uint32_t bytes = iy >= 0 && iy < h && pb > pa ? (uint32_t)(pb - pa) * pix_bytes : 0u;
+      if (lane == 0) {
+        if (q >= BR_STAGES) fp_mbar_wait(empty + s, (q / BR_STAGES - 1) & 1);
+        if (bytes != 0) fp_mbar_expect_tx(full + s, bytes);
+        else fp_mbar_arrive(full + s);
+      }
+      __syncwarp();
+      if (bytes == 0) continue;
+      uint8_t* dst = smem_br + s * stage_bytes;
+      const bf16* src = x + ((img + iy) * w + ix0 + pa) * c + c0;
+      if (cc == c) {  // one copy: the row's pixels are contiguous
+        if (lane == 0) fp_bulk_load(dst + pa * pix_bytes, src, bytes, full + s);
+      } else {
+        for (int p = lane; p < pb - pa; p += 32)
+          fp_bulk_load(dst + (pa + p) * pix_bytes, src + (int64_t)p * c, pix_bytes, full + s);
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int v = threadIdx.x % nv;
+  const int col = threadIdx.x / nv;
+  const int ox = ix0 + px0 + col;
+  const bool active = threadIdx.x < nv * tw && ox < ow;
+  // which of the thread's 4 input columns exist (none for an inactive thread)
+  bool col_ok[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) col_ok[j] = active && ix0 + col + j >= 0 && ix0 + col + j < w;
+  const int rd = (col * nv + v) * 16;  // the thread's first tap in a stage
+  bf16* yb = y + ((int64_t)blockIdx.z * oh * ow + ox) * c + c0 + 8 * v;
+
+  // win[i]: horizontal sum of input row (current - 3 + i) at this output column
+  Vec<8> win[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) win[i].v[e] = 0.f;
+
+#pragma unroll 4
+  for (int r = 0; r < nin; ++r) {
+    const int s = r % BR_STAGES;
+    fp_mbar_wait(full + s, (r / BR_STAGES) & 1);
+    const bool row_ok = iy0 + r >= 0 && iy0 + r < h;
+    const uint8_t* st = smem_br + s * stage_bytes + rd;
+    Vec<8> in[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (row_ok && col_ok[j]) {
+        in[j] = unpack_bf16x8(*reinterpret_cast<const uint4*>(st + j * pix_bytes));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) in[j].v[e] = 0.f;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) fp_mbar_arrive(empty + s);  // this warp is done with the stage
+#pragma unroll
+    for (int i = 0; i < 3; ++i) win[i] = win[i + 1];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      win[3].v[e] = fx.v[0] * in[0].v[e] + fx.v[1] * in[1].v[e] + fx.v[2] * in[2].v[e] +
+                    fx.v[3] * in[3].v[e];
+    if (r >= 3 && active) {
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = fp_pack_bf16x2(
+            fy.v[0] * win[0].v[2 * e] + fy.v[1] * win[1].v[2 * e] + fy.v[2] * win[2].v[2 * e] +
+                fy.v[3] * win[3].v[2 * e],
+            fy.v[0] * win[0].v[2 * e + 1] + fy.v[1] * win[1].v[2 * e + 1] + fy.v[2] * win[2].v[2 * e + 1] +
+                fy.v[3] * win[3].v[2 * e + 1]);
+      *reinterpret_cast<uint4*>(yb + (int64_t)(oy0 + r - 3) * ow * c) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+cudaError_t blur4_ring_launch(const bf16* x, bf16* y, int n, int h, int w, int c, int oh, int ow, int py0,
+                              int px0, Taps4 fy, Taps4 fx, cudaStream_t stream) {
+  // nv: the largest divisor of C / 8 up to BR_MAX_NV vectors
+  const int nvec = c / 8;
+  int nv = min(nvec, BR_MAX_NV);
+  while (nvec % nv != 0) --nv;
+  const int tw = BR_THREADS / nv;
+  const int64_t tiles = (int64_t)((ow + tw - 1) / tw) * (nvec / nv);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
+  // strips of up to 64 rows, more of them while the launch is short of blocks, equal in length
+  int target = 64;
+  while (target > 2 && tiles * ((oh + target - 1) / target) * n < (int64_t)BR_BLOCKS_PER_SM * sms) target /= 2;
+  const int strips = (oh + target - 1) / target;
+  const int rows = (oh + strips - 1) / strips;
+  if (tiles > 0x7fffffff || strips > 65535) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)BR_STAGES * (tw + 3) * 16 * nv + 2 * BR_STAGES * sizeof(uint64_t);
+  const int threads = (nv * tw + 31) / 32 * 32 + 32;
+  blur4_ring_bf16_kernel<<<dim3((unsigned)tiles, strips, n), threads, smem, stream>>>(
+      x, y, h, w, c, oh, ow, py0, px0, rows, nv, tw, fy, fx);
   return cudaGetLastError();
 }
 
@@ -356,8 +517,10 @@ int blur4_entry(const T* x, T* y, int n, int h, int w, int c, int oh, int ow, in
   Taps4 fx = {{f[4], f[5], f[6], f[7]}};
   constexpr int V = 16 / sizeof(T);  // channels in 16 bytes
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  if (c % V == 0 && aligned)
-    return (int)blur4_launch<T, V>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, stream);
+  if (c % V == 0 && aligned) {
+    if constexpr (sizeof(T) == 2) return (int)blur4_ring_launch(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, stream);
+    else return (int)blur4_launch<T, V>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, stream);
+  }
   return (int)blur4_launch<T, 1>(x, y, n, h, w, c, oh, ow, py0, px0, fy, fx, stream);
 }
 

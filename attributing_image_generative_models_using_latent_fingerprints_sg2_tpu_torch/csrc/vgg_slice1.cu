@@ -48,12 +48,32 @@
 // at batch 16 over 989 TFLOP/s).  They round where the TPU kernel rounds:
 // relu1_1 to bf16 in the band (its `a1band` scratch is x.dtype) and dz1 to bf16
 // before the last product; biases are float32, added to the float32 sums.
-//   forward  On the warp-level `mma.sync.m16n8k16` (tc_tile.cuh fp_bf16_taps)
-//            with all of the packed w2 ([tap][64][64], rows padded to 72 bf16)
-//            resident, one 256-thread block an SM, an 8 x 16 output tile as
-//            above; conv1 on the CUDA cores from the bf16 x and w1 widened to
-//            float, in the float32 kernel's fmaf order; conv2 as 8 warps of 2
-//            pixel rows x 32 channels.
+//   forward  A persistent `wgmma` kernel (tc_tile.cuh's bf16 route): one
+//            256-thread block an SM walks the 16 x 16 output tiles.  Its conv1
+//            (5.1 GFLOP at batch 16 with the halo, ~0.07 ms on the CUDA cores)
+//            costs as much as the whole tensor bound, and it cannot move to the
+//            tensor cores (the backward recomputes conv1's sign in its fmaf
+//            order), so it runs UNDER conv2's products.  w2, packed unflipped
+//            (9 taps x [64 n][64 k] in the 128-byte swizzle, 72 KB), is copied
+//            into shared memory once a block by one bulk async copy.  Per tile:
+//            conv2 on the 16 x 16 tile is `wgmma.m64n64k16` (4 row tiles, two a
+//            warpgroup; A by `ldmatrix` from the a1 band, 18 x 18 pixels as
+//            128-byte swizzled rows, B by descriptor from the resident w2), and
+//            under each tap's two groups the CUDA cores take one row of conv1's
+//            terms for the NEXT tile's a1 (a thread: 9 pixels x 4 channels, w1
+//            read once for 36 fmafs and x as a half-warp broadcast, 3 rounds x 3
+//            rows = the 9 taps), which is rounded to bf16 into the other band;
+//            the raw x rows of the tile after come in by 16-byte `cp.async`
+//            meanwhile and become the next x band (float, zero outside the
+//            image) at the tile's end.  Epilogue: + b2, ReLU, one rounding,
+//            into an output tile in shared memory (quad transposes, 16 bytes a
+//            lane), which bulk async copies store row by row while the next
+//            tile computes: the 134 MB of output at batch 16 leave in the
+//            background instead of in one burst a tile.  Halo recompute 1.27x
+//            (the 8 x 16 tile of the float32 kernel: 1.41x).  Shared memory: w2
+//            72 KB + two a1 bands 81 KB + the output tile 32 KB + x 6.3 KB + raw
+//            x 2.8 KB + w1, b1, b2 as float 7.3 KB = 207,176 bytes with the
+//            alignment pad.
 //   backward A persistent `wgmma` kernel (tc_tile.cuh's bf16 route): one
 //            256-thread block an SM walks the 14 x 14 dx tiles (block j takes
 //            tiles j, j + grid, ...).  It copies the packed adjoint w2 (9 taps
@@ -451,141 +471,293 @@ __global__ void __launch_bounds__(B_THREADS, 1)
 
 // ---- bfloat16 variants ----
 using bf16 = __nv_bfloat16;
-constexpr int S_KS = 64 + 8;                                  // shared row stride of 64 channels, bf16
-constexpr int S_W2 = 9 * 64 * S_KS;                           // packed w2 taps, bf16 elements
-constexpr int S_THREADS = 256;
-// forward: w2 | a1 band (10 x 18) | x (12 x 20 x 3 float) | w1 (float) | b1
-constexpr int SF_A1 = F_BAND_PIXELS * S_KS;
-constexpr size_t SF_OFF_XS = sizeof(bf16) * (S_W2 + SF_A1);
-constexpr size_t SF_BYTES = SF_OFF_XS + sizeof(float) * (F_XS + F_W1 + 64);
-static_assert(SF_OFF_XS % 16 == 0, "layout");
 
 __device__ __forceinline__ float s_ld(const bf16* p) {
   return __uint_as_float(static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
-// Packed weights ([chunk of 32][tap][n][32] bf16, ops/tf32.py::pack_conv_weights_bf16
-// with C_in = 64 and an N tile of `n`) into shared [tap][n][S_KS]: cp.async, 16 bytes a piece.
-__device__ __forceinline__ void s_load_taps(bf16* __restrict__ dst, const bf16* __restrict__ src, int n) {
-  const int rows = 9 * n;  // rows of one chunk
-  for (int i = threadIdx.x; i < 2 * rows * 4; i += S_THREADS) {
-    const int q = i & 3;
-    const int r = i >> 2;
-    fp_cp_async16(dst + (r % rows) * S_KS + 32 * (r / rows) + 8 * q, src + r * 32 + 8 * q, true);
-  }
+struct SwTile {
+  int64_t img;  // first pixel of the tile's image
+  int ty0, tx0;
+};
+
+// Tile `tile` of the persistent walks: images one after another, square tiles of side `side`
+// row by row within an image.
+__device__ __forceinline__ SwTile sw_tile(int64_t tile, int h, int wd, int side) {
+  const int tiles_x = (wd + side - 1) / side;
+  const int64_t per_img = (int64_t)((h + side - 1) / side) * tiles_x;
+  const int rem = (int)(tile % per_img);
+  return {(tile / per_img) * h * wd, (rem / tiles_x) * side, (rem % tiles_x) * side};
 }
 
-// x (3 channels, bf16) on the `side_h` x `side_w` region at offset (y0, x0) as float, zero
-// outside the image; w1 (bf16) as float; b1.
-__device__ __forceinline__ void s_load_conv1(float* __restrict__ xs, float* __restrict__ w1s,
-                                             float* __restrict__ b1s, const bf16* __restrict__ x,
-                                             const bf16* __restrict__ w1, const float* __restrict__ b1,
-                                             int64_t img, int y0, int x0, int side_h, int side_w,
+// ---- forward, bf16: a persistent `wgmma` kernel (tc_tile.cuh's bf16 route) ----
+// Shared memory, bytes from a 1024-byte aligned base: the packed w2 taps (resident), two a1
+// bands (the tile's and the next one's: 18 x 18 pixels, a pixel one 128-byte row of 64
+// channels in the 128-byte swizzle, fp_sw128), the output tile as it lies in global memory
+// (16 rows of 16 x 128 bytes), the next tile's x band (20 x 20 pixels, a float4 each: its 3
+// channels and a zero), the raw x rows of the tile after it (the 16-byte pieces of global
+// memory that hold each row's in-image pixels), w1, b1 and b2 as float.
+constexpr int SF_THREADS = 256;
+constexpr int SF_TILE = 16;                                  // output tile
+constexpr int SF_R1 = SF_TILE + 2;                           // a1 band, offset -1
+constexpr int SF_R2 = SF_TILE + 4;                           // x band, offset -2
+constexpr int SF_PIX = SF_R1 * SF_R1;                        // 324
+constexpr int SF_SEG = SF_R1 / 2;                            // pixels of a conv1 item: half a band row
+constexpr int SF_ITEMS = SF_R1 * 2 * 16;                     // conv1 items: SF_SEG pixels x 4 channels: 576
+constexpr int SF_RAW_PIECES = 9;                             // 16-byte pieces of a raw x row (<= 120 + 2 * 14 bytes)
+constexpr int SF_RAW_ROW = 16 * SF_RAW_PIECES;
+constexpr uint32_t SF_BAND = SF_PIX * 128;                   // 41,472
+constexpr uint32_t SF_W2 = 9 * 64 * 128;                     // [tap][64 n][64 k] bf16: 73,728
+constexpr uint32_t SF_OUT = SF_TILE * SF_TILE * 128;          // the output tile, bf16, as in global memory
+constexpr uint32_t SF_OFF_BAND = SF_W2;                      // two bands
+constexpr uint32_t SF_OFF_OUT = SF_OFF_BAND + 2 * SF_BAND;
+constexpr uint32_t SF_OFF_XS = SF_OFF_OUT + SF_OUT;
+constexpr uint32_t SF_OFF_RAW = SF_OFF_XS + 16 * SF_R2 * SF_R2;
+constexpr uint32_t SF_OFF_W1 = SF_OFF_RAW + SF_RAW_ROW * SF_R2;
+constexpr uint32_t SF_OFF_B1 = SF_OFF_W1 + sizeof(float) * F_W1;
+constexpr uint32_t SF_OFF_B2 = SF_OFF_B1 + sizeof(float) * 64;
+constexpr uint32_t SF_OFF_BAR = SF_OFF_B2 + sizeof(float) * 64;
+constexpr size_t SF_BYTES = 1024 + SF_OFF_BAR + sizeof(uint64_t);
+static_assert(SF_OFF_BAND % 1024 == 0 && SF_BAND % 128 == 0 && SF_OFF_OUT % 128 == 0 && SF_OFF_RAW % 16 == 0 &&
+                  SF_OFF_BAR % 8 == 0,
+              "alignment");
+static_assert(SF_R2 * SF_RAW_PIECES <= SF_THREADS && SF_ITEMS <= 3 * SF_THREADS, "work a thread");
+static_assert(SF_BYTES <= 232448, "one block an SM");
+
+// Address of the first in-image pixel of x band row r of the tile, rounded down to 16 bytes.
+__device__ __forceinline__ uintptr_t sf_row_base(const bf16* x, SwTile tl, int r, int wd) {
+  const bf16* p = x + (tl.img + (int64_t)(tl.ty0 - 2 + r) * wd + max(tl.tx0 - 2, 0)) * 3;
+  return reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)15;
+}
+
+// The raw x rows of the tile's 20 x 20 x 3 region at offset -2, by cp.async: row r's piece j
+// (thread 9 r + j) is the j-th 16-byte block from sf_row_base, copied if it holds a byte of
+// the row's in-image pixels (a piece may reach past them, never past the 16-byte blocks
+// that hold x's own bytes).
+__device__ __forceinline__ void sf_load_raw(uint8_t* raw, const bf16* __restrict__ x, SwTile tl, int h,
+                                            int wd) {
+  const int i = threadIdx.x;
+  if (i >= SF_R2 * SF_RAW_PIECES) return;
+  const int r = i / SF_RAW_PIECES;
+  const int iy = tl.ty0 - 2 + r;
+  uintptr_t src = 0;
+  bool valid = iy >= 0 && iy < h;
+  if (valid) {
+    const bf16* end = x + (tl.img + (int64_t)iy * wd + min(tl.tx0 + SF_TILE + 2, wd)) * 3;
+    src = sf_row_base(x, tl, r, wd) + 16 * (i % SF_RAW_PIECES);
+    valid = src < reinterpret_cast<uintptr_t>(end);
+  }
+  fp_cp_async16(raw + r * SF_RAW_ROW + 16 * (i % SF_RAW_PIECES),
+                valid ? reinterpret_cast<const void*>(src) : static_cast<const void*>(x), valid);
+}
+
+// The tile's x band from its raw rows: 20 x 20 float4 (3 channels, 0), zero outside the image.
+__device__ __forceinline__ void sf_convert_x(float4* xs, const uint8_t* raw, const bf16* x, SwTile tl,
                                              int h, int wd) {
-  for (int i = threadIdx.x; i < side_h * side_w * 3; i += S_THREADS) {
-    const int k = i % 3;
-    const int p = i / 3;
-    const int iy = y0 + p / side_w;
-    const int ix = x0 + p % side_w;
-    xs[i] = (iy >= 0 && iy < h && ix >= 0 && ix < wd) ? s_ld(x + (img + (int64_t)iy * wd + ix) * 3 + k) : 0.f;
+  for (int p = threadIdx.x; p < SF_R2 * SF_R2; p += SF_THREADS) {
+    const int r = p / SF_R2;
+    const int iy = tl.ty0 - 2 + r, ix = tl.tx0 - 2 + p % SF_R2;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (iy >= 0 && iy < h && ix >= 0 && ix < wd) {
+      const uintptr_t at = reinterpret_cast<uintptr_t>(x + (tl.img + (int64_t)iy * wd + ix) * 3);
+      const bf16* q = reinterpret_cast<const bf16*>(raw + r * SF_RAW_ROW + (at - sf_row_base(x, tl, r, wd)));
+      v = make_float4(s_ld(q), s_ld(q + 1), s_ld(q + 2), 0.f);
+    }
+    xs[p] = v;
   }
-  for (int i = threadIdx.x; i < F_W1; i += S_THREADS) w1s[i] = s_ld(w1 + i);
-  if (threadIdx.x < 64) b1s[threadIdx.x] = b1[threadIdx.x];
 }
 
-// w1: HWIO [3,3,3,64] bf16; w2p: w2 packed by pack_conv_weights_bf16 (N tile 64).
-__global__ void __launch_bounds__(S_THREADS, 1)
-    slice1_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                           const float* __restrict__ b1, const bf16* __restrict__ w2p,
-                           const float* __restrict__ b2, bf16* __restrict__ y, int h, int wd) {
-  extern __shared__ __align__(16) uint8_t smem_s1f[];
-  bf16* w2s = reinterpret_cast<bf16*>(smem_s1f);
-  bf16* a1 = w2s + S_W2;
-  float* xs = reinterpret_cast<float*>(smem_s1f + SF_OFF_XS);
-  float* w1s = xs + F_XS;
-  float* b1s = w1s + F_W1;
-
-  const int tiles_x = (wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W;
-  const int ty0 = (blockIdx.x / tiles_x) * F_TILE_H;
-  const int tx0 = (blockIdx.x % tiles_x) * FP_TC_TILE_W;
-  const int64_t img = (int64_t)blockIdx.z * h * wd;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  s_load_taps(w2s, w2p, 64);
-  fp_cp_async_commit();
-  s_load_conv1(xs, w1s, b1s, x, w1, b1, img, ty0 - 2, tx0 - 2, F_XH, F_XW, h, wd);
-  __syncthreads();
-
-  // a1 = bf16(relu(conv1(x) + b1)) on the 10 x 18 region at offset -1, zero outside the
-  // image; one item = one pixel x 16 channels, summed as the float32 kernel sums
-  for (int i = threadIdx.x; i < 4 * F_BAND_PIXELS; i += S_THREADS) {
-    const int p = i % F_BAND_PIXELS;
-    const int cq = i / F_BAND_PIXELS;
-    const int r = p / F_BAND_W;
-    const int q = p % F_BAND_W;
-    const int ay = ty0 - 1 + r;
-    const int ax = tx0 - 1 + q;
-    float z[16];
+// Row dy of conv1's terms for the thread's item of round `round` (item i = tid + 256 round,
+// if i < SF_ITEMS): a1 band pixels (r, c0) .. (r, c0 + 8) with r = i / 32, c0 = 9 (i / 16 % 2),
+// channels 4 cq .. 4 cq + 3 with cq = i % 16.  The 16 lanes of a half warp share the pixels, so
+// x is read as a broadcast and w1 once for 36 fmafs.  dy = 0 starts the sums at b1; dy = 2
+// ends them: ReLU, zero outside the image (conv2's padding), bf16 into the band.  Each element
+// is one fmaf chain from b1 over (dy, dx, ci): the float32 kernel's order, which the backward
+// repeats for conv1's sign.
+__device__ __forceinline__ void sf_conv1(float (&z)[SF_SEG][4], int round, int dy, const float4* __restrict__ xs,
+                                         const float* __restrict__ w1s, const float* __restrict__ b1s,
+                                         uint8_t* band, SwTile tl, int h, int wd) {
+  const int i = threadIdx.x + SF_THREADS * round;
+  if (i >= SF_ITEMS) return;
+  const int cq = i & 15;
+  const int r = i >> 5;
+  const int c0 = SF_SEG * ((i >> 4) & 1);
+  if (dy == 0) {
+    const float4 b = *reinterpret_cast<const float4*>(b1s + 4 * cq);
 #pragma unroll
-    for (int e = 0; e < 16; ++e) z[e] = 0.f;
-    if (ay >= 0 && ay < h && ax >= 0 && ax < wd) {
-      float xv[27];
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int k = 0; k < 9; ++k) xv[dy * 9 + k] = xs[((r + dy) * F_XW + q) * 3 + k];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) z[e] = b1s[16 * cq + e];
-#pragma unroll
-      for (int k = 0; k < 27; ++k)
-#pragma unroll
-        for (int e = 0; e < 16; ++e) z[e] = fmaf(xv[k], w1s[k * 64 + 16 * cq + e], z[e]);
-#pragma unroll
-      for (int e = 0; e < 16; ++e) z[e] = fmaxf(z[e], 0.f);
+    for (int p = 0; p < SF_SEG; ++p) {
+      z[p][0] = b.x;
+      z[p][1] = b.y;
+      z[p][2] = b.z;
+      z[p][3] = b.w;
     }
-    uint32_t packed[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) packed[e] = fp_pack_bf16x2(z[2 * e], z[2 * e + 1]);
-    uint4* dst = reinterpret_cast<uint4*>(a1 + p * S_KS + 16 * cq);
-    dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
   }
-  fp_cp_async_wait<0>();
-  __syncthreads();
-
-  // a2 = conv(a1, w2): tile rows 2 wm, 2 wm + 1, channels 32 wn ..
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  float acc[2][4][4];
+  float4 xv[SF_SEG + 2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int j = 0; j < SF_SEG + 2; ++j) xv[j] = xs[(r + dy) * SF_R2 + c0 + j];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+  for (int dx = 0; dx < 3; ++dx) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  fp_bf16_taps<2, 4, 4>(acc, a1 + (2 * wm * F_BAND_W + g) * S_KS + 2 * t, F_BAND_W * S_KS, F_BAND_W, S_KS,
-                        w2s + (32 * wn + g) * S_KS + 2 * t, S_KS, 64 * S_KS);
-
+    for (int ci = 0; ci < 3; ++ci) {
+      const float4 wv = *reinterpret_cast<const float4*>(w1s + (9 * dy + 3 * dx + ci) * 64 + 4 * cq);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int oy = ty0 + 2 * wm + mt;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ox = tx0 + g + 8 * half;
-      if (oy >= h || ox >= wd) continue;
-      bf16* yp = y + (img + (int64_t)oy * wd + ox) * 64 + 32 * wn + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int co = 32 * wn + 8 * nt + 2 * t;
-        const float v0 = fmaxf(acc[mt][nt][2 * half] + b2[co], 0.f);
-        const float v1 = fmaxf(acc[mt][nt][2 * half + 1] + b2[co + 1], 0.f);
-        *reinterpret_cast<uint32_t*>(yp + 8 * nt) = fp_pack_bf16x2(v0, v1);
+      for (int p = 0; p < SF_SEG; ++p) {
+        const float a = ci == 0 ? xv[p + dx].x : ci == 1 ? xv[p + dx].y : xv[p + dx].z;
+        z[p][0] = fmaf(a, wv.x, z[p][0]);
+        z[p][1] = fmaf(a, wv.y, z[p][1]);
+        z[p][2] = fmaf(a, wv.z, z[p][2]);
+        z[p][3] = fmaf(a, wv.w, z[p][3]);
       }
     }
   }
+  if (dy == 2) {
+    const int ay = tl.ty0 - 1 + r;
+#pragma unroll
+    for (int p = 0; p < SF_SEG; ++p) {
+      const int ax = tl.tx0 - 1 + c0 + p;
+      const bool inside = ay >= 0 && ay < h && ax >= 0 && ax < wd;
+      const uint2 v = inside ? make_uint2(fp_pack_bf16x2(fmaxf(z[p][0], 0.f), fmaxf(z[p][1], 0.f)),
+                                          fp_pack_bf16x2(fmaxf(z[p][2], 0.f), fmaxf(z[p][3], 0.f)))
+                             : make_uint2(0u, 0u);
+      *reinterpret_cast<uint2*>(band + fp_sw128(r * SF_R1 + c0 + p, cq >> 1) + 8 * (cq & 1)) = v;
+    }
+  }
+}
+
+// x [N,H,W,3] bf16; w1 HWIO [3,3,3,64] bf16; w2p: w2 packed by pack_conv_weights_sw128 (N tile
+// 64, not flipped); y [N,H,W,64] bf16.  The grid walks the 16 x 16 tiles: block j takes tiles
+// j, j + gridDim.x, ...  While a tile's conv2 runs on the tensor cores, the CUDA cores compute
+// the next tile's a1 into the other band, and the raw x of the tile after that comes in.
+__global__ void __launch_bounds__(SF_THREADS, 1)
+    slice1_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                           const float* __restrict__ b1, const bf16* __restrict__ w2p,
+                           const float* __restrict__ b2, bf16* __restrict__ y, int h, int wd,
+                           int64_t tiles) {
+  extern __shared__ uint8_t smem_sf[];
+  uint8_t* base = smem_sf + ((1024 - (fp_smem_u32(smem_sf) & 1023)) & 1023);
+  uint8_t* bands = base + SF_OFF_BAND;
+  uint8_t* out = base + SF_OFF_OUT;
+  float4* xs = reinterpret_cast<float4*>(base + SF_OFF_XS);
+  uint8_t* raw = base + SF_OFF_RAW;
+  float* w1s = reinterpret_cast<float*>(base + SF_OFF_W1);
+  float* b1s = reinterpret_cast<float*>(base + SF_OFF_B1);
+  float* b2s = reinterpret_cast<float*>(base + SF_OFF_B2);
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(base + SF_OFF_BAR);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const int wg = warp >> 2;  // warpgroup wg owns m-tiles 2 wg, 2 wg + 1 (4 tile rows each)
+  const int wi = warp & 3;
+  const uint32_t w2_addr = fp_smem_u32(base);
+
+  if (tid == 0) {
+    fp_mbar_init(wbar, 1);
+    fp_mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {  // w2, once a block
+    fp_mbar_expect_tx(wbar, SF_W2);
+    fp_bulk_load(base, w2p, SF_W2, wbar);
+  }
+  for (int i = tid; i < F_W1; i += SF_THREADS) w1s[i] = s_ld(w1 + i);
+  if (tid < 64) {
+    b1s[tid] = b1[tid];
+    b2s[tid] = b2[tid];
+  }
+
+  // the first tile's a1, without products to hide it under; the second tile's x comes in meanwhile
+  int64_t tile = blockIdx.x;
+  SwTile tl = sw_tile(tile, h, wd, SF_TILE);
+  SwTile tn = sw_tile(tile + gridDim.x, h, wd, SF_TILE);
+  sf_load_raw(raw, x, tl, h, wd);
+  fp_cp_async_wait_all();
+  __syncthreads();
+  sf_convert_x(xs, raw, x, tl, h, wd);
+  __syncthreads();
+  if (tile + gridDim.x < tiles) sf_load_raw(raw, x, tn, h, wd);
+  {
+    float z[SF_SEG][4];
+#pragma unroll 1
+    for (int k = 0; k < 9; ++k) sf_conv1(z, k / 3, k % 3, xs, w1s, b1s, bands, tl, h, wd);
+  }
+  fp_cp_async_wait_all();
+  __syncthreads();
+  if (tile + gridDim.x < tiles) sf_convert_x(xs, raw, x, tn, h, wd);
+  __syncthreads();
+
+  // the lane's pixels: ldmatrix row (lane % 16) and accumulator rows gq, gq + 8 of warp wi in
+  // m-tile 2 wg + mt, i.e. tile row 8 wg + 4 mt + wi
+  const int r_lm = lane & 15;
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int buf = it & 1;
+    const uint32_t band_addr = fp_smem_u32(bands + buf * SF_BAND);
+    uint8_t* band_next = bands + (buf ^ 1) * SF_BAND;
+    const int64_t next = tile + gridDim.x, after = next + gridDim.x;
+    const SwTile ta = sw_tile(after, h, wd, SF_TILE);
+    if (after < tiles) sf_load_raw(raw, x, ta, h, wd);
+    if (it == 0) fp_mbar_wait(wbar, 0);
+
+    // a2 = conv(a1, w2) on the 16 x 16 tile, tap by tap and m-tile by m-tile as `wgmma`
+    // groups, one in flight while the next one's fragments are read.  Under each tap's two
+    // groups the CUDA cores take one row (dy) of conv1's terms for the next tile's a1.
+    float acc[2][32], z[SF_SEG][4];  // acc: written by the `wgmma`s alone (tap 0 starts the sums)
+    uint32_t fr[2][4][4];
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dxx = tap % 3;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int ry = 8 * wg + 4 * mt + wi;
+        fp_load_a4(fr[mt], band_addr, (ry + dy) * SF_R1 + r_lm + dxx, lane);
+        fp_wgmma_bf16_tap(acc[mt], fr[mt], w2_addr + tap * 8192, tap > 0);
+        if (mt == 0) fp_wgmma_wait<1>();  // group (tap - 1, 1) is done: fr[1] is free
+      }
+      if (next < tiles) sf_conv1(z, tap / 3, tap % 3, xs, w1s, b1s, band_next, tn, h, wd);
+      fp_wgmma_wait<1>();  // group (tap, 0) is done: fr[0] is free
+    }
+    fp_wgmma_wait<0>();
+    if (tid < SF_TILE) fp_bulk_wait_read<0>();  // the last tile's output copies have left `out`
+    fp_cp_async_wait_all();
+    __syncthreads();  // the next tile's a1 complete, the raw rows arrived; xs, this band and `out` free
+
+    // epilogue: float32 bias and ReLU, one rounding; the quad's 4 x 4 word transposes give
+    // each lane 8 consecutive channels, 16 bytes into the output tile in shared memory, which
+    // bulk async copies store row by row under the next tile's products
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int ry = 8 * wg + 4 * mt + wi;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        uint8_t* op = out + (ry * SF_TILE + gq + 8 * hf) * 128;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = 4 * m + q;  // 8-channel group
+            v[q] = fp_pack_bf16x2(fmaxf(acc[mt][4 * j + 2 * hf] + b2s[8 * j + 2 * t], 0.f),
+                                  fmaxf(acc[mt][4 * j + 2 * hf + 1] + b2s[8 * j + 2 * t + 1], 0.f));
+          }
+          fp_quad_transpose(v, t);
+          *reinterpret_cast<uint4*>(op + 16 * (4 * m + t)) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+    fp_fence_proxy_async();
+    if (after < tiles) sf_convert_x(xs, raw, x, ta, h, wd);
+    __syncthreads();
+    if (tid < SF_TILE && tl.ty0 + tid < h) {  // thread r stores tile row r
+      fp_bulk_store(y + (tl.img + (int64_t)(tl.ty0 + tid) * wd + tl.tx0) * 64, out + tid * SF_TILE * 128,
+                    min(SF_TILE, wd - tl.tx0) * 128);
+      fp_bulk_commit();
+    }
+    tl = tn;
+    tn = ta;
+  }
+  if (tid < SF_TILE) fp_bulk_wait<0>();
 }
 
 // ---- backward, bf16: a persistent `wgmma` kernel (tc_tile.cuh's bf16 route) ----
@@ -608,18 +780,6 @@ constexpr uint32_t SW_OFF_BAR = SW_OFF_B1 + sizeof(float) * 64;
 constexpr size_t SW_BYTES = 1024 + SW_OFF_BAR + sizeof(uint64_t);
 static_assert(SW_OFF_G % 1024 == 0 && SW_OFF_A2 % 128 == 0 && SW_OFF_BAR % 8 == 0, "alignment");
 static_assert(SW_BYTES <= 232448, "one block an SM");
-
-struct SwTile {
-  int64_t img;  // first pixel of the tile's image
-  int ty0, tx0;
-};
-
-__device__ __forceinline__ SwTile sw_tile(int64_t tile, int h, int wd) {
-  const int tiles_x = (wd + B_TILE - 1) / B_TILE;
-  const int64_t per_img = (int64_t)((h + B_TILE - 1) / B_TILE) * tiles_x;
-  const int rem = (int)(tile % per_img);
-  return {(tile / per_img) * h * wd, (rem / tiles_x) * B_TILE, (rem % tiles_x) * B_TILE};
-}
 
 // The tile's g and a2 on the 18 x 18 region at offset -2 (zero outside the image): 16-byte
 // cp.async pieces, piece i to thread i % SW_THREADS, which later masks what it loaded.
@@ -688,7 +848,7 @@ __global__ void __launch_bounds__(SW_THREADS, 1)
   for (int i = tid; i < F_W1; i += SW_THREADS) w1s[i] = s_ld(w1 + i);
   if (tid < 64) b1s[tid] = b1[tid];
   int64_t tile = blockIdx.x;
-  SwTile tl = sw_tile(tile, h, wd);
+  SwTile tl = sw_tile(tile, h, wd, B_TILE);
   sw_load_ga(gbuf, abuf, g, a2, tl, h, wd);
   for (int i = tid; i < B_XS; i += SW_THREADS) xs[i] = __uint_as_float(sw_x(x, tl, i, h, wd) << 16);
 
@@ -723,7 +883,7 @@ __global__ void __launch_bounds__(SW_THREADS, 1)
 
     // the next tile's g, a2 (cp.async) and x (registers) come in under this tile's products
     const int64_t next = tile + gridDim.x;
-    const SwTile tn = sw_tile(next, h, wd);
+    const SwTile tn = sw_tile(next, h, wd, B_TILE);
     uint32_t xr[(B_XS + SW_THREADS - 1) / SW_THREADS];
     if (next < tiles) {
       sw_load_ga(gbuf + (buf ^ 1) * SW_BAND, abuf, g, a2, tn, h, wd);
@@ -881,15 +1041,20 @@ int fp_vgg_slice1_bwd_f32(const float* g, const float* a2, const float* x, const
   return (int)cudaGetLastError();
 }
 
+// One block an SM walks the 16 x 16 tiles.
 int fp_vgg_slice1_fwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2p,
                            const float* b2, bf16* y, int n, int h, int wd, void* stream) {
-  if (n <= 0 || h <= 0 || wd <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(slice1_fwd_bf16_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SF_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = ((h + F_TILE_H - 1) / F_TILE_H) * ((wd + FP_TC_TILE_W - 1) / FP_TC_TILE_W);
-  slice1_fwd_bf16_kernel<<<dim3(tiles, 1, n), S_THREADS, SF_BYTES, (cudaStream_t)stream>>>(
-      x, w1, b1, w2p, b2, y, h, wd);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  const int64_t tiles = (int64_t)n * ((h + SF_TILE - 1) / SF_TILE) * ((wd + SF_TILE - 1) / SF_TILE);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  slice1_fwd_bf16_kernel<<<grid, SF_THREADS, SF_BYTES, (cudaStream_t)stream>>>(x, w1, b1, w2p, b2, y, h,
+                                                                               wd, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """The three-pass TF32 split and the weight packing of the tensor-core kernels
-(float32: TF32 hi/lo tiles; bfloat16: plain bf16 tiles, and the 64-channel
-128-byte-swizzled tiles of the bf16 ``wgmma`` kernels).
+(float32: TF32 hi/lo tiles; bfloat16: the 64-channel 128-byte-swizzled tiles
+of the bf16 ``wgmma`` kernels).
 
 The tensor cores have no float32 product.  ``csrc/tc_tile.cuh`` therefore
 splits both operands, ``a = a_hi + a_lo`` with ``a_hi = tf32(a)`` and
@@ -83,22 +83,6 @@ def pack_conv_weights(w_hwio: torch.Tensor, n_tile: int) -> torch.Tensor:
     return out.reshape(n_tiles, cin // KC, 9, 2, n_tile, KC)
 
 
-def pack_conv_weights_bf16(w_hwio: torch.Tensor, n_tile: int) -> torch.Tensor:
-    """HWIO [3, 3, C_in, C_out] -> [C_out tiles, C_in / 32, 9 taps, n_tile, 32]
-    bfloat16 (rounded to nearest even): K-major rows (one out-channel each,
-    zero rows up to a multiple of ``n_tile``), channels in their own order and
-    no swizzle.  The bf16 kernels copy a [9, n_tile, 32] chunk into shared
-    memory with a padded row stride (``csrc/tc_tile.cuh``, bf16 route)."""
-    _, _, cin, cout = w_hwio.shape
-    if cin % KC or n_tile % 8:
-        raise ValueError(f"pack_conv_weights_bf16: C_in {cin} % {KC} or n_tile {n_tile} % 8 is not 0")
-    n_tiles = -(-cout // n_tile)
-    w = F.pad(w_hwio.reshape(9, cin, cout).to(torch.float32), (0, n_tiles * n_tile - cout))
-    # [tap, chunk, k, tile, n] -> [tile, chunk, tap, n, k]
-    w = w.reshape(9, cin // KC, KC, n_tiles, n_tile).permute(3, 1, 0, 4, 2)
-    return w.to(torch.bfloat16).contiguous()
-
-
 KC_SW128 = 64  # input channels per chunk of the bf16 `wgmma` packing: one 128-byte row of bf16
 
 
@@ -153,20 +137,20 @@ def unpack_conv_weights(packed: torch.Tensor, cout: int) -> Tuple[torch.Tensor, 
     return w[0].contiguous(), w[1].contiguous()
 
 
-_PACKED: Dict[Tuple[int, int, bool, torch.dtype, bool], Tuple[weakref.ref, int, torch.Tensor]] = {}
+_PACKED: Dict[Tuple[int, int, bool, torch.dtype], Tuple[weakref.ref, int, torch.Tensor]] = {}
 pack_count = 0  # packings done so far: a run can show that none happens per call
 
 
 def packed_weights(w_hwio: torch.Tensor, n_tile: int, flip: bool = False,
-                   dtype: torch.dtype = torch.float32, sw128: bool = False) -> torch.Tensor:
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Packed (and, with ``flip``, adjoint) weights of ``w_hwio`` for the kernel
-    of ``dtype`` (float32: :func:`pack_conv_weights`; bfloat16:
-    :func:`pack_conv_weights_bf16`, or with ``sw128`` the swizzled 64-channel
-    tiles of the bf16 ``wgmma`` kernels, :func:`pack_conv_weights_sw128`),
-    computed on first use and again only after the tensor was changed in place
-    (its ``_version`` moved) or another tensor took its place."""
+    of ``dtype`` (float32: :func:`pack_conv_weights`; bfloat16: the swizzled
+    64-channel tiles of the bf16 ``wgmma`` kernels,
+    :func:`pack_conv_weights_sw128`), computed on first use and again only
+    after the tensor was changed in place (its ``_version`` moved) or another
+    tensor took its place."""
     global pack_count
-    key = (id(w_hwio), n_tile, flip, dtype, sw128)
+    key = (id(w_hwio), n_tile, flip, dtype)
     hit = _PACKED.get(key)
     if hit is not None and hit[0]() is w_hwio and hit[1] == w_hwio._version:
         return hit[2]
@@ -174,10 +158,7 @@ def packed_weights(w_hwio: torch.Tensor, n_tile: int, flip: bool = False,
         del _PACKED[k]
     with torch.no_grad():
         w = w_hwio.detach()
-        if dtype != torch.bfloat16:
-            pack = pack_conv_weights
-        else:
-            pack = pack_conv_weights_sw128 if sw128 else pack_conv_weights_bf16
+        pack = pack_conv_weights_sw128 if dtype == torch.bfloat16 else pack_conv_weights
         packed = pack(flip_io(w) if flip else w.contiguous(), n_tile)
     pack_count += 1
     _PACKED[key] = (weakref.ref(w_hwio), w_hwio._version, packed)

@@ -65,7 +65,7 @@ def conv3x3_launch(x: torch.Tensor, w_hwio: torch.Tensor, bias, relu: bool,
     if c % 64:
         raise ValueError(f"conv3x3_relu: the CUDA kernel takes C % 64 == 0, got C={c}")
     if dtype == torch.bfloat16:  # the bf16 kernel's N tile: 128 channels, or 64 where C % 128 == 64
-        wp = packed_weights(w_hwio, 128 if c % 128 == 0 else 64, flip, dtype, sw128=True)
+        wp = packed_weights(w_hwio, 128 if c % 128 == 0 else 64, flip, dtype)
     else:
         wp = packed_weights(w_hwio, N_TILE, flip, dtype)
     b = None if bias is None else bias.float()

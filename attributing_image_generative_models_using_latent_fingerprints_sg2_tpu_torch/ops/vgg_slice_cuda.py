@@ -7,7 +7,7 @@ recomputing conv1's sign.  The forward's 64 -> 64 conv and the backward's two
 adjoint convs run on the tensor cores (three-pass TF32 split, float32
 accuracy) from weights packed once per weight tensor by ``ops/tf32.py``.  A
 bfloat16 ``x`` goes to the bf16 variants (``vgg_slice1_fwd_bf16``,
-``vgg_slice1_bwd_bf16``, the latter on ``wgmma`` with its weights resident in
+``vgg_slice1_bwd_bf16``, both on ``wgmma`` with their weights resident in
 each block of a persistent grid): one pass of bf16 products with float32 sums, the
 float32 biases added before each rounding, ``relu1_1`` and dz1 rounded to bf16
 where the reference's TPU kernel rounds them.  dw and db are computed in plain
@@ -22,8 +22,9 @@ from ._cuda import INT, PTR, Kernel, by_dtype, check_cuda_operands, register
 from .tf32 import conv3x3_three_pass, flip_io, packed_weights
 from .vgg_cuda import conv3x3_relu_plain
 
-FWD_TILE = (8, 16)  # output tile (rows, columns) of the forward kernel (csrc/vgg_slice1.cu)
-BWD_TILE = 14       # dx tile of the backward kernel
+FWD_TILE = (8, 16)        # output tile (rows, columns) of the float32 forward kernel (csrc/vgg_slice1.cu)
+FWD_TILE_BF16 = (16, 16)  # output tile of the bf16 forward kernel
+BWD_TILE = 14             # dx tile of the backward kernels
 
 SLICE1_FWD = register(Kernel(
     "vgg_slice1_fwd", "fp_vgg_slice1_fwd_f32", [PTR] * 6 + [INT] * 3,
@@ -75,8 +76,7 @@ def slice1_backward_launch(g, a2, x, w1, b1, w2) -> torch.Tensor:
     dtype = check_cuda_operands("vgg_slice1", g, a2, x)
     check_cuda_operands("vgg_slice1", w1, b1, w2)
     _check_shapes(x, w1, w2)
-    sw128 = dtype == torch.bfloat16  # the bf16 kernel's `wgmma` tiles
-    w1fp, w2fp = packed_weights(w1, 8, True, dtype, sw128), packed_weights(w2, 64, True, dtype, sw128)
+    w1fp, w2fp = packed_weights(w1, 8, True, dtype), packed_weights(w2, 64, True, dtype)
     n, h, w, _ = x.shape
     dx = torch.empty_like(x)
     args = (g, a2, x, w1.to(dtype), b1.float(), w1fp, w2fp, dx)

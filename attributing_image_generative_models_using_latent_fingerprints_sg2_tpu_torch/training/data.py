@@ -22,6 +22,8 @@ from typing import Dict
 
 import torch
 
+from ..utils.device import resolve_device
+
 N_BLOBS = 3
 N_RECTS = 2
 
@@ -128,10 +130,12 @@ def render(f: Factors, size: int, sharp: bool = False) -> torch.Tensor:
 
 
 def sample_batch(generator: torch.Generator, batch: int, size: int, sharp: bool = False,
-                 latent_dim: int = 0, device="cpu") -> torch.Tensor:
+                 latent_dim: int = 0, device="cuda") -> torch.Tensor:
     """[batch, size, size, 3] float32 images in [-1, 1], NHWC: factors drawn
-    from ``generator`` on the CPU, rendered on ``device``.  ``latent_dim > 0``
+    from ``generator`` on the CPU, rendered on ``device`` (the card unless the
+    caller asks for the CPU; without CUDA it raises).  ``latent_dim > 0``
     takes the rank-limited smooth draw; ``sharp`` applies to the full draw."""
+    device = resolve_device(device)
     if latent_dim > 0:
         if sharp:
             raise ValueError("sharp data variant has no lowdim mode")

@@ -297,7 +297,16 @@ def _bf(t):
     return t.to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("c,h,w,pads", BLUR4_CASES)
+# bf16 only (the float32 kernel is another design): the discriminator's 256px blurs,
+# pads (1, 1) on 256^2 and (2, 2) on its adjoint's 255^2; the main path's C256 and C512
+# widths; channel counts whose 16-byte vectors fill a block's 256 threads unevenly (3 and
+# 5 vectors a pixel, one channel chunk; 64 vectors, two chunks of 32, copied pixel by pixel)
+BLUR4_BF16_CASES = BLUR4_CASES + [(128, 256, 256, (1, 1)), (128, 255, 255, (2, 2)), (256, 129, 129, (1, 1)),
+                                  (512, 65, 65, (1, 1)), (512, 64, 64, (2, 2)), (24, 19, 23, (2, 1)),
+                                  (40, 12, 70, (1, 2))]
+
+
+@pytest.mark.parametrize("c,h,w,pads", BLUR4_BF16_CASES)
 def test_blur4_bf16_kernel(cuda, c, h, w, pads):
     x = _bf(_rand(2, h, w, c).to(cuda))
     oh, ow = h + sum(pads) - 3, w + sum(pads) - 3
@@ -340,7 +349,10 @@ def test_conv3x3_relu_bf16_kernel(cuda, c, h, w):
     _close_bf16(vgg_cuda.conv3x3_launch(cot, wt, None, relu=False, flip=True), _adjoint_plain(cot, wt))
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 16, 16), (2, 13, 22), (2, 29, 43), (2, 256, 256), (16, 256, 256)])
+# the persistent forward's 16 x 16 tiles: ragged H and W, fewer tiles than blocks (one
+# SM a block: 1 x 24 x 40 is 6 tiles), more (16 x 256^2: 4096; 40 x 50 x 70: 800, ragged)
+@pytest.mark.parametrize("n,h,w", [(2, 16, 16), (2, 13, 22), (2, 29, 43), (2, 256, 256), (16, 256, 256),
+                                   (1, 24, 40), (40, 50, 70)])
 def test_vgg_slice1_bf16_forward_launch(cuda, n, h, w):
     ws = _slice_weights(cuda)
     x = _bf(_rand(n, h, w, 3).to(cuda))
@@ -365,7 +377,7 @@ def test_vgg_slice1_bf16_backward_launch(cuda, h, w):
     _close_bf16(got * keep, want * keep)
 
 
-@pytest.mark.parametrize("h,w,seed", [(16, 16, 0), (13, 22, 0), (256, 256, 0)])
+@pytest.mark.parametrize("h,w,seed", [(16, 16, 0), (13, 22, 0), (256, 256, 0), (24, 40, 1)])
 def test_vgg_slice1_bf16_kernel(cuda, h, w, seed):
     ws = _slice_weights(cuda)
     x = _bf(_rand(2, h, w, 3, seed=seed).to(cuda))

@@ -103,6 +103,7 @@ def test_tf32_round_ties_away_from_zero():
     pytest.param(192, 192, 64, "sw128", id="sw128-192-192-64"),
     pytest.param(64, 64, 64, "sw128", id="sw128-64-64-64"),
     pytest.param(64, 3, 8, "sw128", id="sw128-64-3-8"),
+    pytest.param(64, 64, 64, "sw128-fwd", id="sw128-64-64-64-unflipped"),
 ])
 def test_pack_round_trips_and_flipped_form_is_flip_io(cin, cout, n_tile, layout):
     w = torch.from_numpy(_rand((3, 3, cin, cout), 20))
@@ -112,8 +113,13 @@ def test_pack_round_trips_and_flipped_form_is_flip_io(cin, cout, n_tile, layout)
         assert torch.equal(tf32.unpack_conv_weights_sw128(packed, cout), w.to(torch.bfloat16))
         # the backward's packing: packed_weights(v, flip=True) of the v whose adjoint w is
         v = tf32.flip_io(w)
-        adj = tf32.packed_weights(v, n_tile, flip=True, dtype=torch.bfloat16, sw128=True)
+        adj = tf32.packed_weights(v, n_tile, flip=True, dtype=torch.bfloat16)
         assert torch.equal(tf32.unpack_conv_weights_sw128(adj, cout), w.to(torch.bfloat16))
+        return
+    if layout == "sw128-fwd":  # the bf16 slice forward's w2: packed_weights unflipped, as its wrapper asks
+        packed = tf32.packed_weights(w, n_tile, dtype=torch.bfloat16)
+        assert torch.equal(packed, tf32.pack_conv_weights_sw128(w, n_tile))
+        assert torch.equal(tf32.unpack_conv_weights_sw128(packed, cout), w.to(torch.bfloat16))
         return
     packed = tf32.pack_conv_weights(w, n_tile)
     assert packed.shape == (-(-cout // n_tile), cin // 32, 9, 2, n_tile, 32)
@@ -216,12 +222,11 @@ def test_packed_weights_are_cached_until_the_tensor_changes():
     other = w.clone()  # another tensor with the same values is packed on its own
     tf32.packed_weights(other, 64)
     assert tf32.pack_count == before + 3
-    # the bf16 layouts of one tensor are cached apart: the slice forward's rows and the
-    # `wgmma` kernels' swizzled tiles
-    rows = tf32.packed_weights(w, 64, dtype=torch.bfloat16)
-    sw = tf32.packed_weights(w, 64, dtype=torch.bfloat16, sw128=True)
-    assert rows.shape == (1, 2, 9, 64, 32) and sw.shape == (1, 1, 9, 64, 64)
-    assert tf32.packed_weights(w, 64, dtype=torch.bfloat16, sw128=True) is sw
+    # the bf16 layout (the `wgmma` kernels' swizzled tiles) and its adjoint are cached apart
+    sw = tf32.packed_weights(w, 64, dtype=torch.bfloat16)
+    adj = tf32.packed_weights(w, 64, flip=True, dtype=torch.bfloat16)
+    assert sw.shape == adj.shape == (1, 1, 9, 64, 64) and not torch.equal(sw, adj)
+    assert tf32.packed_weights(w, 64, dtype=torch.bfloat16) is sw
     assert tf32.pack_count == before + 5
 
 

@@ -35,6 +35,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch
     make_kernel,
     split_symmetric_4tap,
 )
+from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.training import data
 
 K1 = split_symmetric_4tap(make_kernel((1, 3, 3, 1)) * 4.0)
 
@@ -113,7 +114,9 @@ def _jax_slice1(h, w):
     return _JAX_A2[(h, w)]
 
 
-@pytest.mark.parametrize("h,w,tile", [(13, 22, (8, 16)), (13, 22, (5, 7)), (16, 16, (8, 16)), (16, 16, (16, 16))])
+# the float32 kernel's 8 x 16 tile, an odd one, and the bf16 kernel's 16 x 16 (last: ragged)
+@pytest.mark.parametrize("h,w,tile", [(13, 22, (8, 16)), (13, 22, (5, 7)), (16, 16, (8, 16)), (16, 16, (16, 16)),
+                                      (13, 22, vgg_slice_cuda.FWD_TILE_BF16)])
 def test_tiled_slice1_forward_matches_plain_and_jax(h, w, tile):
     args = [torch.from_numpy(a) for a in _slice_inputs(h, w)]
     want = vgg_slice_cuda.vgg_slice1_plain(*args)
@@ -173,6 +176,8 @@ def test_upblur4_fused_and_adjoint_counts(h):
 
 
 def test_build_pipeline_defaults_to_cuda_and_never_falls_back():
+    """build_pipeline, and sample_batch of the training data, raise without CUDA
+    unless asked for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("with a CUDA device the default builds on it (chip_smoke.py drives that)")
     mcfg = ModelConfig(img_size=8, style_dim=16, n_mlp=1, channel_max=16)
@@ -181,3 +186,7 @@ def test_build_pipeline_defaults_to_cuda_and_never_falls_back():
         pipeline.build_pipeline(mcfg, fpcfg)
     pipe = pipeline.build_pipeline(mcfg, fpcfg, device="cpu", want_lpips=False)
     assert pipe.device.type == "cpu" and pipe.noise[0].device.type == "cpu"
+    # the training data's render follows the same rule
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data.sample_batch(torch.Generator().manual_seed(0), 2, 8)
+    assert data.sample_batch(torch.Generator().manual_seed(0), 2, 8, device="cpu").device.type == "cpu"

@@ -287,10 +287,10 @@ def test_data_render_matches_jax_and_lowdim_is_rank_d():
     assert zp.shape == (64, data._FACTOR_DIM) and np.abs(zp).max() < 1.0
     s = np.linalg.svd(np.arctanh(zp), compute_uv=False)
     assert s[d - 1] > 1e-3 and s[d] < 1e-4 * s[0], s[: d + 2]
-    imgs = data.sample_batch(torch.Generator().manual_seed(1), 4, 16, latent_dim=d)
+    imgs = data.sample_batch(torch.Generator().manual_seed(1), 4, 16, latent_dim=d, device="cpu")
     assert imgs.shape == (4, 16, 16, 3) and imgs.abs().max() <= 1.0
     with pytest.raises(ValueError):
-        data.sample_batch(torch.Generator(), 2, 16, sharp=True, latent_dim=d)
+        data.sample_batch(torch.Generator(), 2, 16, sharp=True, latent_dim=d, device="cpu")
 
 
 def test_image_folder_schedule_and_batches_match_jax(tmp_path, monkeypatch):
