@@ -12,7 +12,8 @@ algebra:
   is flipped back once, at use, for ``F.conv_transpose2d``;
 - the post-transpose blur (pad (1, 1), gain 4) and the ToRGB skip upsample
   run through ``ops.upfirdn2d``, i.e. the ``blur4`` / ``upblur4`` CUDA
-  kernels on a CUDA tensor;
+  kernels on a CUDA tensor; ``synthesis`` sums its ToRGB outputs in one
+  ``upsample2x_chain`` at the end (one launch each way in bf16);
 - the discriminator (training only) blurs before each stride-2 conv, through
   the same ``blur4`` kernel at pads (2, 2) and (1, 1).
 
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops.fused_act import fused_leaky_relu
-from ..ops.upfirdn2d import make_kernel, upfirdn2d, upsample2x_add
+from ..ops.upfirdn2d import make_kernel, upfirdn2d, upsample2x_add, upsample2x_chain
 from ..utils.tree import tree_to
 
 Params = Dict[str, Any]
@@ -151,16 +152,18 @@ def synthesis(params: Params, latent: torch.Tensor,
     const = params["input"]
     out = const.expand(latent.shape[0], *const.shape[1:]).to(latent.dtype)
     out = styled_conv(out, latent[:, 0], params["conv1"], noise[0], blur_kernel=blur_kernel)
-    skip = to_rgb(out, latent[:, 1], params["to_rgb1"], None, blur_kernel=blur_kernel)
+    # the ToRGB outputs without their skips, summed up the resolutions at the end
+    # in one op: nothing else reads an intermediate rgb
+    ts = [to_rgb(out, latent[:, 1], params["to_rgb1"], None, blur_kernel=blur_kernel)]
     i = 1
     for idx, p_rgb in enumerate(params["to_rgbs"]):
         out = styled_conv(out, latent[:, i], params["convs"][2 * idx], noise[1 + 2 * idx],
                           upsample=True, blur_kernel=blur_kernel)
         out = styled_conv(out, latent[:, i + 1], params["convs"][2 * idx + 1], noise[2 + 2 * idx],
                           blur_kernel=blur_kernel)
-        skip = to_rgb(out, latent[:, i + 2], p_rgb, skip, blur_kernel=blur_kernel)
+        ts.append(to_rgb(out, latent[:, i + 2], p_rgb, None, blur_kernel=blur_kernel))
         i += 2
-    return skip
+    return upsample2x_chain(ts, blur_kernel)
 
 
 def prepare_latent(params: Params, styles: Sequence[torch.Tensor], cfg: ModelConfig, *,

@@ -38,14 +38,17 @@ CONV3X3_SHAPES = ((128, 128, 1), (256, 64, 2), (512, 32, 2), (512, 16, 3))
 SLICE1_H = 256
 LAUNCHES_PER_STEP = {"blur4": 12, "upblur4": 6, "upblur4_adj": 6, "conv3x3_relu": 16,
                      "vgg_slice1_fwd": 1, "vgg_slice1_bwd": 1}
+# in bf16 the ToRGB skip chain is one launch each way (ops/upfirdn2d_cuda.py::upblur4_chain)
+CHAIN_LAUNCHES_BF16 = {"upblur4": 1, "upblur4_adj": 1}
 BF16_SUFFIX = "_bf16"  # the name of a kernel's bfloat16 variant is its own + this
 
 
 def step_launches(dtype: str = "float32") -> Dict[str, int]:
     """Launches of one solve step in ``dtype`` ("float32" | "bfloat16"), by the
     name of the kernel variant that runs them."""
-    suffix = BF16_SUFFIX if dtype == "bfloat16" else ""
-    return {k + suffix: v for k, v in LAUNCHES_PER_STEP.items()}
+    if dtype != "bfloat16":
+        return dict(LAUNCHES_PER_STEP)
+    return {k + BF16_SUFFIX: CHAIN_LAUNCHES_BF16.get(k, v) for k, v in LAUNCHES_PER_STEP.items()}
 
 # The 256px discriminator: (C, input size r) of its res blocks, each with two
 # blurs on its input width: pads (2, 2) before the 3x3 stride-2 conv (out r + 1)
@@ -99,6 +102,26 @@ def upblur4_adj(n: int, c: int, h: int, w: int, dtype: str = "float32") -> Dict[
     return _counts(2.0 * 16 * n * h * w * c, 1.0 * n * c * (4 * h * w + h * w), "fir", dtype)
 
 
+def _pyramid(n: int, c: int, h0: int, levels) -> float:
+    """Elements of the square levels ``levels`` of a pyramid from h0 x h0, doubling a level."""
+    return float(sum(n * c * (h0 << k) ** 2 for k in levels))
+
+
+def upblur4_chain(n: int, c: int, h0: int, levels: int, dtype: str = "float32") -> Dict[str, object]:
+    """The ToRGB skip chain in one launch, t_k at (h0 2^k)^2 for k = 0 .. levels:
+    reads every t_k once and writes rgb_L once (the intermediate rgb_k never
+    reach memory); 9 flops an output of every level above 0, as upblur4 fused."""
+    return _counts(9.0 * _pyramid(n, c, h0, range(1, levels + 1)),
+                   _pyramid(n, c, h0, range(levels + 1)) + _pyramid(n, c, h0, [levels]), "fir", dtype)
+
+
+def upblur4_adj_chain(n: int, c: int, h0: int, levels: int, dtype: str = "float32") -> Dict[str, object]:
+    """The cotangent cascade in one launch: reads g = g_L once, writes g_0 ..
+    g_{L-1} once; 16 taps for every element written."""
+    outs = _pyramid(n, c, h0, range(levels))
+    return _counts(2.0 * 16 * outs, _pyramid(n, c, h0, [levels]) + outs, "fir", dtype)
+
+
 def conv3x3(n: int, h: int, w: int, c: int, dtype: str = "float32") -> Dict[str, object]:
     """Square 3x3 conv (+ bias + ReLU): x and y once, the weights and bias once."""
     return _counts(2.0 * 9 * c * c * n * h * w, 2.0 * n * h * w * c + 9 * c * c + c, "conv", dtype)
@@ -135,6 +158,10 @@ def main_path(name: str, n: int, dtype: str = "float32") -> Sequence[Tuple[str, 
         return [(f"C3_H{h}", upblur4(n, 3, h, h, fused=True, dtype=dtype)) for h in UPBLUR4_SHAPES]
     if name == "upblur4_adj":
         return [(f"C3_H{h}", upblur4_adj(n, 3, h, h, dtype)) for h in UPBLUR4_SHAPES]
+    if name in ("upblur4_chain", "upblur4_adj_chain"):  # the whole chain in one launch
+        h0, levels = UPBLUR4_SHAPES[0], len(UPBLUR4_SHAPES)
+        fn = upblur4_chain if name == "upblur4_chain" else upblur4_adj_chain
+        return [(f"C3_H{h0}-H{h0 << levels}", fn(n, 3, h0, levels, dtype))]
     if name == "conv3x3_relu":
         return [(f"C{c}_H{h}", conv3x3(n, h, h, c, dtype)) for c, h, _ in CONV3X3_SHAPES]
     if name == "vgg_slice1_fwd":

@@ -10,7 +10,8 @@ on a CUDA tensor, their plain versions on a CPU one): a 4x4 separable
 symmetric kernel with up=down=1 and pads in [0, 3] (``blur4``: the
 synthesis network's post-transpose blur, and the discriminator's blur before
 each stride-2 conv), and the same kernel with up=2, pad (2, 1) (``upblur4``;
-``upsample2x_add`` is its fusion with the ToRGB skip's add).
+``upsample2x_add`` is its fusion with the ToRGB skip's add, and
+``upsample2x_chain`` the whole skip chain of a synthesis).
 Everything else takes the general path below.
 """
 
@@ -135,6 +136,20 @@ def upsample2x_add(rgb: torch.Tensor, skip: torch.Tensor, kernel=(1, 3, 3, 1)) -
     if k1d is None:
         return rgb + upsample2x(skip, kernel)
     return upfirdn2d_cuda.upblur4_add(rgb, skip, k1d)
+
+
+def upsample2x_chain(ts: Sequence[torch.Tensor], kernel=(1, 3, 3, 1)) -> torch.Tensor:
+    """The ToRGB skip chain of a synthesis, ``ts`` = [t_0, ..., t_L] the ToRGB
+    outputs from the smallest up: rgb_0 = t_0, rgb_k = t_k + upsample2x(rgb_{k-1});
+    returns rgb_L.  A 4-tap kernel goes to ``upfirdn2d_cuda.upblur4_chain``
+    (one launch each way in bf16 on the card), else level by level."""
+    k1d = split_symmetric_4tap(make_kernel(kernel) * 4.0) if len(kernel) == 4 else None
+    if k1d is not None:
+        return upfirdn2d_cuda.upblur4_chain(ts, k1d)
+    rgb = ts[0]
+    for t in ts[1:]:
+        rgb = t + upsample2x(rgb, kernel)
+    return rgb
 
 
 def blur(x: torch.Tensor, kernel, pad: Tuple[int, int], upsample_factor: int = 1) -> torch.Tensor:

@@ -137,19 +137,28 @@ bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
     max of the float32 plain version on the same (bf16) inputs, the
     launch-only, plain and library times (the PyTorch calls in bf16; for the
     slice two cuDNN convs + ReLU, autograd over them for its backward) and the
-    bf16 bound; the FIR second derivative once in bf16 against
-    the plain bf16 versions on the CPU (0.03 of max).
+    bf16 bound; ``upblur4_bf16`` / ``upblur4_adj_bf16`` at the six per-level
+    shapes are one-level launches, and the whole 256px skip chain follows as one
+    launch each way (``chain_`` rows: bit-equal to the six chained one-level
+    launches, within 0.03 of the plain chain, launch-only, back-to-back and
+    device times, the library call chaining ``F.conv_transpose2d`` + add or the
+    strided depthwise ``F.conv2d``); the FIR second derivative once in bf16
+    against the plain bf16 versions on the CPU (0.03 of max), the skip chain's
+    among them.
 3.  recovery in bf16: phase 3's tiny configuration and gates, ``dtype="bfloat16"``.
 5.  step16 -- the 16-chain 256px perceptual solve step at full width in the
     turns float32, bf16, bf16, float32 (CUDA events, median of 5 steps a
     turn), each dtype's peak memory, device-busy share and top device
     operations (``torch.profiler``), and its launches per step, which must be
     ``ops/roofline.py::step_launches`` of that dtype and 0 for the other
-    dtype's kernels.  attribute_bf16 -- ``cli.attribute --dtype bfloat16`` as
-    phase 5 runs it: finite losses, ``result.txt``, every bf16 kernel launched,
-    float32 kernels only inside ``pipeline.synthesize`` (the float32 renders
-    of the targets and the stored images); chain-steps/s and peak memory
-    beside phase 5's.
+    dtype's kernels (in bf16 the skip chain once each way).  attribute_bf16 --
+    ``cli.attribute --dtype bfloat16`` as phase 5 runs it: finite losses,
+    ``result.txt``, every bf16 kernel launched, float32 kernels only inside
+    ``pipeline.synthesize`` (the float32 renders of the targets and the stored
+    images); chain-steps/s and peak memory beside phase 5's; a second run of 10
+    steps gives its launches per step, held to ``step_launches("bfloat16")``.
+9.  the encoder's bf16 renders: one ``upblur4_bf16`` launch each, none of the
+    adjoint.
 12. the BigGAN-deep-256 16-chain step in bf16 (the reference widens the bf16 z
     where it meets the class embedding, so its generator and the LPIPS on its
     image stay float32; only the targets' features are bf16).
@@ -160,7 +169,9 @@ bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
 Then it prints the card's name and power limit, one JSON line describing
 each kernel (its launches on every path above: ``launches`` is phase 5's for
 a float32 kernel and the bf16 ``cli.attribute`` run's for a ``_bf16`` one,
-``launches_training`` phase 14's timed steps), and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+``launches_training`` phase 14's timed steps; the bf16 skip chain's times are
+its one launch, its per-level shapes under ``per_level_``), and, last,
+``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero at once.
 """
 
@@ -362,6 +373,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
     k1 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)) * 4.0)
     kt = torch.tensor(k1, device="cuda")
     disc = n == 16 and act is None  # the discriminator's rows: float32 only
+    bf16_route = act is not None  # the bf16 cases and their float32 references: the chain rows too
     if act is None:
         act = lambda t: t  # noqa: E731
     dt = act(torch.zeros(1, device="cuda")).dtype  # the kernels' dtype
@@ -435,6 +447,8 @@ def launch_cases(torch, mods, n, rnd, act=None):
         cases.append(("upblur4_adj", f"C3_H{h}", kf, lambda g=g: up_cuda.upblur4_adjoint_plain(g, k1),
                       lambda g=g: F.conv2d(g.permute(0, 3, 1, 2), wl3, stride=2, padding=1, groups=3),
                       roof.upblur4_adj(n, 3, h, h, dname), lambda kf=kf, pa=plain_adjoint: (kf(), pa(), None)))
+    if bf16_route:
+        cases += chain_cases(torch, up_cuda, roof, n, arnd, k1, wl3, dt, dname)
     for c, h, _ in roof.CONV3X3_SHAPES:
         w, b = rnd(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5), rnd(c, scale=0.1)
         x = arnd(n, h, h, c)
@@ -494,6 +508,80 @@ def launch_cases(torch, mods, n, rnd, act=None):
     return cases
 
 
+def chain_cases(torch, up_cuda, roof, n, arnd, k1, wl3, dt, dname):
+    """The bf16 ToRGB skip chain of the 256px main path as a synthesis runs it, one
+    launch each way (``chain_`` rows): ``upblur4_bf16`` over t_0 .. t_6 and
+    ``upblur4_adj_bf16`` from the image's cotangent to g_0 .. g_5 (flattened and
+    concatenated), each held bit-equal to the six chained one-level launches and
+    against the plain chain; the library call chains ``F.conv_transpose2d`` + add,
+    or the depthwise strided ``F.conv2d``.  In float32 (the references of the bf16
+    rows) the kernel side is the six float32 launches a level."""
+    import torch.nn.functional as F
+
+    (label, fwd_counts), = roof.main_path("upblur4_chain", n, dname)
+    (_, adj_counts), = roof.main_path("upblur4_adj_chain", n, dname)
+    h0, levels = roof.UPBLUR4_SHAPES[0], len(roof.UPBLUR4_SHAPES)
+    ts = [arnd(n, h0 << k, h0 << k, 3) for k in range(levels + 1)]
+    g = arnd(n, h0 << levels, h0 << levels, 3)
+    bf16 = dt == torch.bfloat16
+
+    def chained():
+        rgb = ts[0]
+        for t in ts[1:]:
+            rgb = up_cuda.upblur4_launch(rgb, k1, t)
+        return rgb
+
+    def chained_adj():
+        gs = [g]
+        for _ in range(levels):
+            gs.insert(0, up_cuda.upblur4_adjoint_launch(gs[0], k1))
+        return gs[:-1]
+
+    flat = lambda gs: torch.cat([t.flatten() for t in gs])  # noqa: E731
+    kf = (lambda: up_cuda.upblur4_chain_launch(ts, k1)) if bf16 else chained
+    ka = (lambda: up_cuda.upblur4_adj_chain_launch(g, k1, levels)) if bf16 else chained_adj
+    pf = lambda: up_cuda.upblur4_chain_plain(ts, k1)  # noqa: E731
+    pa = lambda: flat(up_cuda.upblur4_adj_chain_plain(g, k1, levels)[:-1])  # noqa: E731
+
+    def library_fwd():
+        rgb = ts[0].permute(0, 3, 1, 2)
+        for t in ts[1:]:
+            rgb = F.conv_transpose2d(rgb, wl3, stride=2, padding=1, groups=3) + t.permute(0, 3, 1, 2)
+        return rgb
+
+    def library_adj():
+        gs = [g.permute(0, 3, 1, 2)]
+        for _ in range(levels):
+            gs.append(F.conv2d(gs[-1], wl3, stride=2, padding=1, groups=3))
+        return gs
+
+    def check_chain(kfn, chained_fn, plain_fn, what):
+        k, c = kfn(), chained_fn()
+        k, c = (k, c) if torch.is_tensor(k) else (flat(k), flat(c))
+        check(not bf16 or torch.equal(k, c), f"{what} batch {n}: not bit-equal to the chained launches")
+        return k, plain_fn(), None
+
+    return [("upblur4", f"chain_{label}", kf, pf, library_fwd, fwd_counts,
+             lambda: check_chain(kf, chained, pf, "upblur4_bf16 chain")),
+            ("upblur4_adj", f"chain_{label}", ka, pa, library_adj, adj_counts,
+             lambda: check_chain(ka, chained_adj, pa, "upblur4_adj_bf16 cascade"))]
+
+
+def back_to_back_ms(torch, fn, reps: int = 20) -> float:
+    """Mean time of ``reps`` launches enqueued back to back: the wrapper's host
+    work overlaps the previous launch, so where the kernel is the longer of the
+    two this is its device time."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def phase_launch_times(torch, mods, per_kernel):
     """Launch-only times at batch 2 and 16 beside bound, plain and library
     times; the batch-16 sums over a kernel's shapes go into ``per_kernel``,
@@ -527,6 +615,9 @@ def phase_launch_times(torch, mods, per_kernel):
                     line = {"phase": "launch", "kernel": kname, "shape": shape, "batch": n,
                             "ms": median_ms(torch, kfn), "plain_ms": median_ms(torch, pfn),
                             "library_ms": median_ms(torch, lfn), **counts}
+                    if shape.startswith("chain_"):  # the launches' host work hides the device time: both
+                        line["back_to_back_ms"] = back_to_back_ms(torch, kfn)
+                        line["device_ms"] = device_ms_per_call(torch, kfn, calls=10)
                     line["share_of_bound"] = line["bound_ms"] / line["ms"]
                     if chk is not None:
                         k, p, keep = chk()
@@ -560,6 +651,11 @@ def phase_launch_times(torch, mods, per_kernel):
                     if n == 16:
                         adjoint = shape.endswith(("_dx", "_adj"))
                         prefix = ("disc_" if shape.startswith("D_") else "") + ("adjoint_" if adjoint else "")
+                        if shape.startswith("chain_"):  # the bf16 skip chain in one launch
+                            prefix = "chain_"
+                            agg["chain_back_to_back_ms"] = line["back_to_back_ms"]
+                            agg["chain_device_ms"] = line["device_ms"]
+                            agg["chain_bound_by"] = line["bound_by"]
                         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                             agg[prefix + key] = agg.get(prefix + key, 0.0) + line[key]
                         if not prefix:
@@ -791,12 +887,24 @@ def phase_attribute_bf16(torch, port, gpu, f32_line):
     check(len(r.bit_accs) == samples and all(v == v and abs(v) < float("inf") for v in r.losses),
           f"rows {r.bit_accs}, losses {r.losses}")
     check_bf16_solve(counts, renders, "cli.attribute --dtype bfloat16")
+    # the same run with half the steps: a bf16 solve step launches what the bound's table says
+    cuda_mod.reset_launches()
+    port["cli_attribute"].run(FULL + ["--loss", "perceptual", "--sample_size", str(samples), "--n", str(starts),
+                                      "--steps", str(steps // 2), "--dtype", "bfloat16",
+                                      "--save_dir", os.path.join(OUT, "attribute_bf16_half")])
+    half, want = cuda_mod.launch_counts(), port["roof"].step_launches("bfloat16")
+    per_step = {}
+    for name, n in of_dtype(counts, "bfloat16").items():
+        d, m = divmod(n - half[name], steps - steps // 2)
+        check(m == 0 and d == want[name], f"cli.attribute --dtype bfloat16: {name} {n} and {half[name]} launches "
+                                          f"over {steps} and {steps // 2} steps, the table expects {want[name]} a step")
+        per_step[name] = d
     emit({"phase": "attribute_bf16", "img_size": 256, "loss": "perceptual", "dtype": "bfloat16", "samples": samples,
           "restarts": starts, "steps": steps, "solve_seconds": r.solve_seconds,
           "chain_steps_per_s": steps * r.chains / r.solve_seconds, "max_memory_allocated_bytes": peak,
           "float32_chain_steps_per_s": f32_line["chain_steps_per_s"],
           "float32_max_memory_allocated_bytes": f32_line["max_memory_allocated_bytes"],
-          "losses": r.losses, "bit_acc": r.bit_accs, "launches": counts, "gpu": gpu})
+          "losses": r.losses, "bit_acc": r.bit_accs, "launches": counts, "launches_per_step": per_step, "gpu": gpu})
     return counts
 
 
@@ -983,6 +1091,10 @@ def phase_encoder(torch, port, gpu):
     check(last < first, f"encoder loss did not fall: first 10 {first:.4f}, last 20 {last:.4f}")
     for name in ("blur4_bf16", "upblur4_bf16"):  # the render goes through a bf16 w+
         check(counts[name] > 0, f"kernel {name} was not launched by encoder training")
+    # a render a step, its skip chain one launch (roof.step_launches("bfloat16")), no backward through it
+    chain = port["roof"].step_launches("bfloat16")["upblur4_bf16"]
+    check(counts["upblur4_bf16"] == steps * chain and counts["upblur4_adj_bf16"] == 0,
+          f"encoder training: {counts['upblur4_bf16']} upblur4_bf16 launches over {steps} renders")
 
     # where a step's device time goes: the render (generator forward + Jpeg) vs the
     # encoder's forward + backward + clipped Adam, each profiled alone on fixed inputs
@@ -1564,9 +1676,16 @@ def phase_second_derivative(torch, mods, disc_shapes):
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite second derivative")
         check(err <= TOL * scale, f"{label}: second derivative error {err:.3e} > {TOL} * {scale:.3e}")
         emit({"phase": "second_derivative", "case": label, "batch": 2, "max_abs_err": err, "scale": scale})
-    # once in bf16: the widest discriminator blur and the ToRGB skip, the bf16 kernels
-    # against the plain bf16 versions on the CPU (each output rounded once on both sides)
-    for label, fn, x, c in (cases[0], cases[-1]):
+    # once in bf16: the widest discriminator blur, the ToRGB skip and the whole skip chain
+    # (4^2 -> 32^2: one launch each way, the cascade's backward the chain again), the bf16
+    # kernels against the plain bf16 versions on the CPU (each output rounded once on both sides)
+    ts = [torch.randn((2, 4 << k, 4 << k, 3), generator=g) for k in range(4)]
+
+    def chain(v):  # differentiated at t_0: through the cascade, and the chain again
+        return up_cuda.upblur4_chain([v] + [t.to(v.device, v.dtype) for t in ts[1:]], k1)
+
+    for label, fn, x, c in (cases[0], cases[-1], ("upblur4 chain C3_H4-H32", chain, ts[0],
+                                                  torch.randn((2, 32, 32, 3), generator=g))):
         xb, cb = x.bfloat16(), c.bfloat16()
         want = second_derivative(torch, fn, xb, cb).float()
         got = second_derivative(torch, fn, xb.cuda(), cb.cuda()).cpu()
@@ -1793,7 +1912,15 @@ def main() -> int:
             agg = per_kernel[base]
             err = max(launch["err"], agg[which] if which else max(agg["err_fwd"], agg["err_dx"]))
         # times: one launch of each distinct main-path shape at batch 16 (the 16-chain
-        # solve), launch function only, summed over the shapes
+        # solve), launch function only, summed over the shapes; for the bf16 skip chain,
+        # whose main path is one launch each way, that launch (the one-level launches of
+        # the six shapes summed under ``per_level_``)
+        times = {key: launch[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        times["bound_by"] = max(launch["bound_by"], key=launch["bound_by"].get)
+        if "chain_ms" in launch:
+            times = {**{"per_level_" + key: v for key, v in times.items()},
+                     **{key: launch["chain_" + key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                                "bound_by", "back_to_back_ms", "device_ms")}}
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PORT}/{k.source}", "replaces": k.replaces,
             # the main path of a _bf16 kernel is cli.attribute --dtype bfloat16
@@ -1805,10 +1932,7 @@ def main() -> int:
             "launches_model_attribution": model_attribution_counts[name],
             "launches_training": training_counts[name],
             "launches_bf16_studies": studies_counts[name],
-            "max_abs_err": err,
-            "ms": launch["ms"], "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
-            "bound_by": max(launch["bound_by"], key=launch["bound_by"].get),
-            "library_ms": launch["library_ms"], "batch": 16,
+            "max_abs_err": err, **times, "batch": 16,
             "launches_per_step": per_step[name],
             # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`) and blur4 at
             # the discriminator's shapes (`disc_`, forward and `disc_adjoint_`), summed likewise

@@ -320,7 +320,8 @@ def test_blur4_bf16_kernel(cuda, c, h, w, pads):
 @pytest.mark.parametrize("taps", [K1, K_SKEW])
 @pytest.mark.parametrize("c,h,w", UPBLUR4_CASES)
 def test_upblur4_add_bf16_kernel(cuda, c, h, w, taps):
-    """The fused rgb + upblur4(skip) in bf16: forward, d/dskip (the adjoint kernel) and d/drgb."""
+    """The fused rgb + upblur4(skip) in bf16: forward, d/dskip (the adjoint kernel) and d/drgb,
+    each a one-level launch of the skip chain's kernels."""
     x = _bf(_rand(2, h, w, c).to(cuda))
     rgb = _bf(_rand(2, 2 * h, 2 * w, c, seed=2).to(cuda)).requires_grad_(True)
     cot = _bf(_rand(2, 2 * h, 2 * w, c, seed=1).to(cuda))
@@ -333,6 +334,134 @@ def test_upblur4_add_bf16_kernel(cuda, c, h, w, taps):
     assert torch.equal(d_rgb, cot)
     g = _bf(_rand(2, 2 * h, 2 * w, c, seed=3).to(cuda))
     _close_bf16(upfirdn2d_cuda.upblur4_adjoint_launch(g, taps), upfirdn2d_cuda.upblur4_adjoint_plain(g, taps))
+
+
+# ---- the bf16 ToRGB skip chain: one launch each way ----
+
+# (N, H0, W0, C, levels): the 256px main path at batch 2; non-square and non-power-of-two
+# levels; C in {1, 3, 4, 8}, so that rows start off the 16-byte grid; one-pixel level 0
+CHAIN_CASES = [(2, 4, 4, 3, 6), (2, 3, 5, 1, 4), (1, 5, 3, 4, 3), (2, 7, 6, 8, 2), (3, 1, 1, 3, 5), (1, 6, 10, 3, 1)]
+
+
+def _chain_levels(cuda, n, h0, w0, c, levels, offset=0):
+    """t_0 .. t_L in bf16; ``offset`` > 0 puts each that many elements past an allocation's
+    start, off the 16-byte grid."""
+    out = []
+    for k in range(levels + 1):
+        t = _bf(_rand(n * (h0 << k) * (w0 << k) * c + offset, seed=10 + k).to(cuda))
+        out.append(t[offset:].view(n, h0 << k, w0 << k, c))
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,h0,w0,c,levels", CHAIN_CASES)
+def test_upblur4_chain_bf16_launch(cuda, n, h0, w0, c, levels, offset):
+    """The L-level forward in one launch is bit-equal to L chained one-level launches
+    (rgb + upblur4 a level), and within BF16_TOL of the plain chain; so with no add at
+    the top (the cascade's backward), whose last level is upblur4 alone."""
+    ts = _chain_levels(cuda, n, h0, w0, c, levels, offset)
+    _cuda.reset_launches()
+    got = upfirdn2d_cuda.upblur4_chain_launch(ts, K_SKEW)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["upblur4_bf16"] == 1
+    rgb = ts[0]
+    for t in ts[1:]:
+        rgb = upfirdn2d_cuda.upblur4_launch(rgb, K_SKEW, t)
+    assert torch.equal(got, rgb)
+    _close_bf16(got, upfirdn2d_cuda.upblur4_chain_plain(ts, K_SKEW))
+    got = upfirdn2d_cuda.upblur4_chain_launch(ts[:-1] + [None], K_SKEW)
+    rgb = ts[0]
+    for t in ts[1:-1]:
+        rgb = upfirdn2d_cuda.upblur4_launch(rgb, K_SKEW, t)
+    assert torch.equal(got, upfirdn2d_cuda.upblur4_launch(rgb, K_SKEW))
+    _close_bf16(got, upfirdn2d_cuda.upblur4_chain_plain(ts[:-1] + [None], K_SKEW))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,h0,w0,c,levels", CHAIN_CASES)
+def test_upblur4_adj_chain_bf16_launch(cuda, n, h0, w0, c, levels, offset):
+    """The cotangent cascade in one launch (a thread-block cluster an image): every
+    level bit-equal to chained one-level adjoint launches and within BF16_TOL of the
+    plain adjoint chain, the levels views of one allocation."""
+    g = _chain_levels(cuda, n, h0, w0, c, levels, offset)[-1]
+    _cuda.reset_launches()
+    gs = upfirdn2d_cuda.upblur4_adj_chain_launch(g, K_SKEW, levels)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["upblur4_adj_bf16"] == 1 and len(gs) == levels
+    assert len({t.untyped_storage().data_ptr() for t in gs}) == 1
+    want = upfirdn2d_cuda.upblur4_adj_chain_plain(g, K_SKEW, levels)
+    d = g
+    for lev in range(levels - 1, -1, -1):
+        d = upfirdn2d_cuda.upblur4_adjoint_launch(d, K_SKEW)
+        assert torch.equal(gs[lev], d), lev
+        _close_bf16(gs[lev], want[lev])
+
+
+@pytest.mark.parametrize("levels,launches", [(7, 2), (8, 3)])
+def test_upblur4_adj_chain_bf16_splits_its_widest_levels(cuda, levels, launches):
+    """At 512 and 1024 px (C = 3) the cascade's widest strip does not fit its
+    shared memory: the leading one or two levels go as one-level launches first,
+    and every level is still bit-equal to the chained adjoint launches."""
+    assert upfirdn2d_cuda.adj_chain_split(4, 4, 3, levels) == launches - 1
+    g = _bf(_rand(1, 4 << levels, 4 << levels, 3, seed=5).to(cuda))
+    _cuda.reset_launches()
+    gs = upfirdn2d_cuda.upblur4_adj_chain_launch(g, K1, levels)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["upblur4_adj_bf16"] == launches
+    d = g
+    for lev in range(levels - 1, -1, -1):
+        d = upfirdn2d_cuda.upblur4_adjoint_launch(d, K1)
+        assert torch.equal(gs[lev], d), lev
+
+
+def test_skip_chain_runs_one_launch_each_way_in_bf16(cuda):
+    """upsample2x_chain on the card: in bf16 forward + backward launch
+    upblur4_bf16 once and upblur4_adj_bf16 once, and reach no library conv;
+    the gradients are the cascade's levels and, for the top, the cotangent
+    itself.  In float32 the chain is six launches each way, as before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.ops.upfirdn2d import (
+        upsample2x_chain,
+    )
+
+    for dtype, want in ((torch.bfloat16, {"upblur4_bf16": 1, "upblur4_adj_bf16": 1}),
+                        (torch.float32, {"upblur4": 6, "upblur4_adj": 6})):
+        ts = [t.to(dtype).requires_grad_(True) for t in _chain_levels(cuda, 2, 4, 4, 3, 6)]
+        cot = _rand(2, 256, 256, 3, seed=2).to(cuda, dtype)
+        _cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            grads = torch.autograd.grad(upsample2x_chain(ts), ts, cot)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _cuda.launch_counts().items() if v} == want
+        assert not [e.key for e in prof.key_averages() if "conv" in e.key.lower()]
+        assert torch.equal(grads[-1], cot)
+        want_grads = upfirdn2d_cuda.upblur4_adj_chain_plain(cot, K1, 6)
+        for got, ref in zip(grads, want_grads):
+            (_close_bf16 if dtype == torch.bfloat16 else _close)(got, ref)
+
+
+def test_skip_chain_bf16_second_derivative_matches_the_cpu(cuda):
+    """A gradient of a gradient through the bf16 chain on the card (chain, cascade,
+    the cascade's backward = the chain with no add at the top, the cascade again)
+    against the plain chain differentiated twice on the CPU, within BF16_TOL."""
+    ts = [t.cpu() for t in _chain_levels(cuda, 2, 4, 4, 3, 3)]
+    c = _bf(_rand(2, 32, 32, 3, seed=7))
+
+    def second(levels, cc):
+        levels = [t.clone().requires_grad_(True) for t in levels]
+        out = upfirdn2d_cuda.upblur4_chain(levels, K_SKEW)
+        grads = torch.autograd.grad((torch.tanh(out.float()) * cc.float()).sum(), levels, create_graph=True)
+        return torch.autograd.grad(sum(gr.float().square().sum() for gr in grads), levels)
+
+    want = second(ts, c)
+    _cuda.reset_launches()
+    got = second([t.to(cuda) for t in ts], c.to(cuda))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+    assert counts == {"upblur4_bf16": 2, "upblur4_adj_bf16": 2}, counts
+    for a, b in zip(got, want):
+        _close_bf16(a.cpu(), b)
 
 
 @pytest.mark.parametrize("c,h,w", CONV_SHAPES)

@@ -313,4 +313,6 @@ def test_kernel_counts_per_image(name, flops_g, mbytes, by):
         assert b["flops"] == c["flops"] and b["bytes"] == c["bytes"] / 2
         t_ops = b["flops"] / (roofline.PEAK_F32 if "blur4" in name else roofline.PEAK_BF16)
         assert b["bound_ms"] == pytest.approx(1e3 * max(t_ops, b["bytes"] / roofline.PEAK_BYTES))
-    assert roofline.step_launches("bfloat16")[name + "_bf16"] == roofline.LAUNCHES_PER_STEP[name]
+    # a bf16 step launches as a float32 one, but for the ToRGB skip chain: once each way
+    want = 1 if name in ("upblur4", "upblur4_adj") else roofline.LAUNCHES_PER_STEP[name]
+    assert roofline.step_launches("bfloat16")[name + "_bf16"] == want

@@ -215,6 +215,8 @@ def test_train_step_launches_match_the_roofline_table(monkeypatch):
     monkeypatch.setattr(U, "upblur4_adjoint_launch", counted("upblur4_adj", U.upblur4_adjoint_plain))
     monkeypatch.setattr(U, "blur4", lambda x, ky, kx, py, px: U._Blur4.apply(x, tuple(ky), tuple(kx), py, px))
     monkeypatch.setattr(U, "upblur4_add", lambda rgb, x, k: U._Upblur4.apply(x, rgb, tuple(k)))
+    # synthesis's skip chain as on the card in float32: one fused upblur4 a level
+    monkeypatch.setattr(U, "upblur4_chain", lambda ts, k: U.upblur4_chain_per_level(ts, tuple(k)))
     mcfg = ModelConfig(img_size=32, style_dim=16, n_mlp=1, channel_max=16)
     tcfg = gan.TrainConfig(batch=2, d_reg_every=2)
     state = gan.init_train_state(mcfg, tcfg, torch.Generator().manual_seed(0), "cpu")

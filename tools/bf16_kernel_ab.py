@@ -3,7 +3,7 @@
 beside their bound and the PyTorch library call for the same function.
 
     python3 tools/bf16_kernel_ab.py [--root TREE] [--batch 16] [--tag NAME] [--out FILE]
-                                    [--only conv|slice|blur4]
+                                    [--only conv|slice|blur4|upblur4|step]
 
 ``--root`` names the checkout whose port is timed (default: this one), so
 that another commit, unpacked with ``git archive``, is timed by the same
@@ -14,15 +14,29 @@ ReLU), against ``F.conv2d`` (+ ReLU) in bf16; ``vgg_slice1_fwd_bf16`` and
 ``vgg_slice1_bwd_bf16`` at 256px against two cuDNN bf16 convs (+ ReLUs) and
 autograd over them; ``blur4_bf16`` at the forward shapes
 (``main_path("blur4")``) and the adjoint's (``main_path("blur4_adj")``,
-summed as ``blur4_bf16_adj``) against the depthwise bf16 ``F.conv2d``.
+summed as ``blur4_bf16_adj``) against the depthwise bf16 ``F.conv2d``;
+the 256px ToRGB skip chain (``--only upblur4``): its six levels as six
+chained one-level launches (``upblur4_bf16_per_level``: rgb + upblur4 a
+level; ``upblur4_adj_bf16_per_level``: the adjoint a level), as a tree before
+the chain kernels ran it, and, where the tree has them, the chain in one
+launch each way (``upblur4_bf16_chain``, ``upblur4_adj_bf16_chain``, held
+bit-equal to the per-level launches), against the chained
+``F.conv_transpose2d`` + add and the chained strided depthwise ``F.conv2d``.
 CUDA events, median of 15 single launches after 3 warm-up launches (the
-repo's launch-only time: the wrapper's host work is in it), and the mean of
+repo's launch-only time: the wrapper's host work is in it), the mean of
 20 launches enqueued back to back (``back_to_back_ms``: device time where the
-kernel outlasts the wrapper's host work).  Each result is also
+kernel outlasts the wrapper's host work), and the device time of a call
+(``device_ms``: its kernels' self times under ``torch.profiler``).  Each result is also
 held against the kernel's plain bf16 version (max|err| / max|plain| < 0.03,
 the slice backward outside conv1's sign neighbourhoods).  Every result is a
 JSON line with the card's name and power limit; the last line sums the
 batch's shapes per kernel.
+
+``--only step`` times the bf16 16-chain 256px perceptual solve step instead
+(full width, random weights from a seed, 4 targets x 4 restarts, as
+``chip_smoke.py``'s ``step16``): the median of 10 steps after 3 warm-up
+steps (CUDA events), the device-busy time a step over 3 profiled steps
+(``torch.profiler``), and the launches a step by kernel.
 """
 
 from __future__ import annotations
@@ -68,13 +82,35 @@ def back_to_back_ms(torch, fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(torch, fn, calls: int = 10) -> float:
+    """Device time of ``fn`` a call: the self times of its CUDA kernels under
+    ``torch.profiler``, summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            total += dev / 1e3 / calls
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None, help="also append the JSON lines to this file")
-    ap.add_argument("--only", choices=("conv", "slice", "blur4"), default=None, help="time one kernel's launches")
+    ap.add_argument("--only", choices=("conv", "slice", "blur4", "upblur4", "step"), default=None,
+                    help="time one kernel's launches, or the bf16 solve step")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -109,6 +145,8 @@ def main() -> int:
 
     n, bf = args.batch, torch.bfloat16
     sums = {}
+    if args.only == "step":
+        return time_step(torch, import_module, _cuda, emit)
 
     def row(kernel, shape, kf, lf, bound, check):
         k, p, keep = check()
@@ -119,13 +157,15 @@ def main() -> int:
         err, pmax = diff.max().item(), p.float().abs().max().item()
         ok = bool(torch.isfinite(k).all()) and err < BF16_TOL * pmax
         line = {"kernel": kernel, "shape": shape, "batch": n, "ms": median_ms(torch, kf),
-                "back_to_back_ms": back_to_back_ms(torch, kf), "library_ms": median_ms(torch, lf),
+                "back_to_back_ms": back_to_back_ms(torch, kf), "device_ms": device_ms(torch, kf),
+                "library_ms": median_ms(torch, lf),
                 "bound_ms": bound["bound_ms"],
                 "bound_by": bound["bound_by"], "max_abs_err": err, "max_abs_plain": pmax, "ok": ok}
         line["share_of_bound"] = line["bound_ms"] / line["ms"]
         emit(line)
-        s = sums.setdefault(kernel, {"ms": 0.0, "back_to_back_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "ok": True})
-        for key in ("ms", "back_to_back_ms", "library_ms", "bound_ms"):
+        s = sums.setdefault(kernel, {"ms": 0.0, "back_to_back_ms": 0.0, "device_ms": 0.0, "library_ms": 0.0,
+                                     "bound_ms": 0.0, "ok": True})
+        for key in ("ms", "back_to_back_ms", "device_ms", "library_ms", "bound_ms"):
             s[key] += line[key]
         s["ok"] = s["ok"] and ok
 
@@ -169,6 +209,8 @@ def main() -> int:
                         lambda kf=kf, x=x, t=taps, p=p: (kf(), up_cuda.blur4_plain(x, t[::-1], t[::-1], (p, p), (p, p)),
                                                          None))
                     del x
+        if args.only in (None, "upblur4"):
+            time_skip_chain(torch, F, up_cuda, upf, roof, n, rnd, row)
         if args.only not in (None, "slice"):
             return summary()
         hs = roof.SLICE1_H
@@ -201,6 +243,129 @@ def main() -> int:
             lambda: torch.autograd.grad(yl, xl, cot.permute(0, 3, 1, 2), retain_graph=True)[0],
             roof.slice1_bwd(n, hs, hs, "bfloat16"), check_bwd)
     return summary()
+
+
+def time_skip_chain(torch, F, up_cuda, upf, roof, n, rnd, row):
+    """The 256px skip chain's six levels both ways: as chained one-level launches,
+    and (where the tree has the chain kernels) as one launch each way."""
+    bf = torch.bfloat16
+    k1 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)) * 4.0)
+    wl3 = torch.outer(*[torch.tensor(k1, device="cuda")] * 2).expand(3, 1, 4, 4).contiguous().to(bf)
+    h0, levels = roof.UPBLUR4_SHAPES[0], len(roof.UPBLUR4_SHAPES)
+    ts = [rnd(n, h0 << k, h0 << k, 3).to(bf) for k in range(levels + 1)]
+    g = rnd(n, h0 << levels, h0 << levels, 3).to(bf)
+    flat = lambda gs: torch.cat([t.flatten() for t in gs])  # noqa: E731
+
+    def per_level():
+        rgb = ts[0]
+        for t in ts[1:]:
+            rgb = up_cuda.upblur4_launch(rgb, k1, t)
+        return rgb
+
+    def per_level_adj():
+        gs = [g]
+        for _ in range(levels):
+            gs.insert(0, up_cuda.upblur4_adjoint_launch(gs[0], k1))
+        return gs[:-1]
+
+    def library_fwd():
+        rgb = ts[0].permute(0, 3, 1, 2)
+        for t in ts[1:]:
+            rgb = F.conv_transpose2d(rgb, wl3, stride=2, padding=1, groups=3) + t.permute(0, 3, 1, 2)
+        return rgb
+
+    def library_adj():
+        gs = [g.permute(0, 3, 1, 2)]
+        for _ in range(levels):
+            gs.append(F.conv2d(gs[-1], wl3, stride=2, padding=1, groups=3))
+        return gs
+
+    def plain_fwd():
+        rgb = ts[0]
+        for t in ts[1:]:
+            rgb = up_cuda.upblur4_add_plain(t, rgb, k1)
+        return rgb
+
+    def plain_adj():
+        gs = [g]
+        for _ in range(levels):
+            gs.insert(0, up_cuda.upblur4_adjoint_plain(gs[0], k1))
+        return flat(gs[:-1])
+
+    label = f"C3_H{h0}-H{h0 << levels}"
+    per_fwd = {"bound_ms": sum(c["bound_ms"] for _, c in roof.main_path("upblur4", n, "bfloat16")), "bound_by": "bytes"}
+    per_adj = {"bound_ms": sum(c["bound_ms"] for _, c in roof.main_path("upblur4_adj", n, "bfloat16")),
+               "bound_by": "bytes"}
+    row("upblur4_bf16_per_level", label, per_level, library_fwd, per_fwd, lambda: (per_level(), plain_fwd(), None))
+    row("upblur4_adj_bf16_per_level", label, per_level_adj, library_adj, per_adj,
+        lambda: (flat(per_level_adj()), plain_adj(), None))
+    if not hasattr(up_cuda, "upblur4_chain_launch"):
+        return
+    kf = lambda: up_cuda.upblur4_chain_launch(ts, k1)  # noqa: E731
+    ka = lambda: up_cuda.upblur4_adj_chain_launch(g, k1, levels)  # noqa: E731
+
+    def same(kfn, ref, plain):
+        k, r = kfn(), ref()
+        k, r = (k, r) if torch.is_tensor(k) else (flat(k), flat(r))
+        if not torch.equal(k, r):
+            raise RuntimeError("the chain launch is not bit-equal to the per-level launches")
+        return k, plain(), None
+
+    row("upblur4_bf16_chain", label, kf, library_fwd, roof.upblur4_chain(n, 3, h0, levels, "bfloat16"),
+        lambda: same(kf, per_level, plain_fwd))
+    row("upblur4_adj_bf16_chain", label, ka, library_adj, roof.upblur4_adj_chain(n, 3, h0, levels, "bfloat16"),
+        lambda: same(ka, per_level_adj, plain_adj))
+
+
+def time_step(torch, import_module, _cuda, emit) -> int:
+    """The bf16 16-chain 256px perceptual solve step: median of 10 steps (CUDA
+    events) after 3 warm-up steps, device busy over 3 profiled steps, launches a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    C = import_module(f"{P}.config")
+    pl = import_module(f"{P}.fingerprint.pipeline")
+    attr = import_module(f"{P}.fingerprint.attribute")
+    lhs = import_module(f"{P}.utils.lhs")
+    mcfg = C.ModelConfig(img_size=256)
+    pipe = pl.build_pipeline(mcfg, C.FingerprintConfig(key_len=64, shift=448),
+                             generator=torch.Generator().manual_seed(0), device="cuda")
+    targets = torch.clamp(pl.generate_fingerprinted(pipe, 4, torch.Generator().manual_seed(1))[0], -1.0, 1.0)
+    acfg = C.AttributionConfig(steps=20, n_starts=4, loss="perceptual")
+    feats, _ = attr._targets_for_loss(pipe.lpips_params, targets, acfg, "bfloat16")
+    step = attr.make_attribution_step(pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, mcfg, acfg, feats,
+                                      None, dtype="bfloat16")[0]
+    alpha0 = torch.as_tensor(lhs.lhs_alpha_init_batch(4, 4, pipe.basis.sigma_rest, torch.Generator().manual_seed(2)),
+                             dtype=torch.float32).cuda()
+    holder = [attr.init_state(alpha0, torch.zeros((4, 4, 64), device="cuda"))]
+
+    def one():
+        holder[0], per = step(holder[0])
+        return per
+
+    one()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    one()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    ms = median_ms(torch, one, reps=10, warmup=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+    busy = 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy += dev / 1e3 / 3
+    emit({"kernel": "step16_bf16", "ms_median": ms, "device_busy_ms": busy, "device_busy_share": busy / ms,
+          "launches_per_step": launches})
+    return 0
 
 
 if __name__ == "__main__":
