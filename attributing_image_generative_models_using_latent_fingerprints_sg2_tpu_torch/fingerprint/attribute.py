@@ -116,6 +116,8 @@ def make_attribution_step(
     """
     nl = mcfg.n_latent
     cdtype = compute_dtype(dtype)
+    if acfg.loss == "perceptual":
+        lpips_params = lpips_mod.backbone_in(lpips_params, cdtype)
     solver_attack = None
     if acfg.solver_attack != "None":
         solver_attack = make_solver_attack(attack_cfg if attack_cfg is not None else AttackConfig(),

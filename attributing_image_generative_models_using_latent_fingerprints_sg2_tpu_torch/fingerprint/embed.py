@@ -80,6 +80,16 @@ def embed(basis: FingerprintBasis, alpha: torch.Tensor, k: torch.Tensor
     return w0, w0 + key_offset(basis, k)
 
 
+def project_latent(basis: FingerprintBasis, w: torch.Tensor) -> torch.Tensor:
+    """The projection of latents w [B, D] onto the content subspace,
+    U^T (U U^T)^-1 U (w - mu), with no mean added back (the reference's
+    ``generate_with_latent``; U U^T is I for orthonormal rows, the solve keeps
+    non-orthonormal bases exact)."""
+    uut = basis.u_cap @ basis.u_cap.T
+    coords = torch.linalg.solve(uut, basis.u_cap @ (w - basis.mean).T)
+    return (basis.u_cap.T @ coords).T
+
+
 def alpha_bound_penalty(basis: FingerprintBasis, alpha: torch.Tensor) -> torch.Tensor:
     """Sum of ReLU violations of the +-3 sigma box, per row."""
     over = torch.relu(alpha - basis.max_alpha)

@@ -10,7 +10,7 @@ positive.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -41,6 +41,19 @@ def pca_from_samples(samples: torch.Tensor) -> PCABasis:
 
 
 @torch.no_grad()
+def perform_pca(
+    mapping_fn: Callable[[torch.Tensor], torch.Tensor],
+    n_samples: int = 10000,
+    dim: int = 512,
+    generator: Optional[torch.Generator] = None,
+) -> PCABasis:
+    """z ~ N(0, I) [n_samples, dim], drawn on the CPU from ``generator`` and
+    handed to ``mapping_fn`` (which moves it where its weights are) -> PCA of
+    the latents it returns."""
+    return pca_from_samples(mapping_fn(torch.randn((n_samples, dim), generator=generator)))
+
+
+@torch.no_grad()
 def perform_pca_for_params(
     params,
     lr_mlp: float,
@@ -51,9 +64,13 @@ def perform_pca_for_params(
 ) -> PCABasis:
     """z ~ N(0, I) [n_samples, dim] (or the given ``z``) -> mapping network -> PCA."""
     device = params["input"].device
+
+    def mapping_fn(zs: torch.Tensor) -> torch.Tensor:
+        return sg2.mapping_network(params, zs.to(device), lr_mlp)
+
     if z is None:
-        z = torch.randn((n_samples, dim), generator=generator)
-    return pca_from_samples(sg2.mapping_network(params, z.to(device), lr_mlp))
+        return perform_pca(mapping_fn, n_samples, dim, generator)
+    return pca_from_samples(mapping_fn(z))
 
 
 @torch.no_grad()

@@ -2,8 +2,8 @@
 
 Counterpart of the reference package's ``fingerprint/pipeline.py``:
 ``build_pipeline`` (weights -> PCA -> basis -> fixed synthesis noise -> LPIPS
--> attack), ``generate_fingerprinted``, ``synthesize``, ``synthesize_mixed``
-and ``augment``, for
+-> attack), ``generate_fingerprinted``, ``synthesize``, ``synthesize_mixed``,
+``augment``, ``get_watermarked_images`` and ``generate_with_latent``, for
 both model families: StyleGAN2 (W space, fixed noise maps) and BigGAN-deep
 (its truncated-noise latent, a one-hot class, truncation 0.4, no noise).
 Every random draw comes from an explicit ``torch.Generator`` (on the CPU, so
@@ -24,7 +24,9 @@ from ..losses import lpips as lpips_mod
 from ..models import biggan as bg
 from ..models import stylegan2 as sg2
 from ..utils.device import resolve_device
-from .embed import FingerprintBasis, build_basis, embed, sample_alpha, sample_key_bits
+from ..utils.lhs import fold_in
+from .embed import (FingerprintBasis, build_basis, embed, key_offset, project_latent, sample_alpha,
+                    sample_key_bits)
 from .pca import PCABasis, pca_from_truncated_noise, perform_pca_for_params
 
 
@@ -174,3 +176,28 @@ def augment(pipe: Pipeline, imgs: torch.Tensor, generator: Optional[torch.Genera
     """The pipeline's eval-mode attack on ``imgs`` (the identity if none);
     random attacks draw from ``generator`` or take the unit-normal ``noise``."""
     return apply_attack(pipe.attack, imgs, generator, noise)
+
+
+@torch.no_grad()
+def get_watermarked_images(pipe: Pipeline, generator: Optional[torch.Generator] = None, batch: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(original, watermarked, attacked) images in [-1, 1]: a fingerprinted
+    batch drawn from ``fold_in(generator, 0)``, the same content without the
+    key, and the watermarked images through the pipeline's attack (its random
+    draws from ``fold_in(generator, 1)``)."""
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    imgs, w0, _, _, _ = generate_fingerprinted(pipe, batch, fold_in(g, 0))
+    return synthesize(pipe, w0), imgs, augment(pipe, imgs, fold_in(g, 1))
+
+
+@torch.no_grad()
+def generate_with_latent(pipe: Pipeline, generator: Optional[torch.Generator], latent_w: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fingerprint arbitrary latents w [B, D]: project them onto the content
+    subspace (:func:`embed.project_latent`, no mean added), add the key offset
+    of random bits drawn from ``generator``.  Returns (imgs, w0, wx, bits)."""
+    latent_w = torch.as_tensor(latent_w, dtype=torch.float32).to(pipe.device)
+    bits = sample_key_bits(pipe.fpcfg.key_len, latent_w.shape[0], generator, pipe.device)
+    w0 = project_latent(pipe.basis, latent_w)
+    wx = w0 + key_offset(pipe.basis, bits)
+    return synthesize(pipe, wx), w0, wx, bits

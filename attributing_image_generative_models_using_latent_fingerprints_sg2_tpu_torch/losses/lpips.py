@@ -19,6 +19,10 @@ reference's analytic backward: it recomputes the normalize/diff chain from
 the raw feature and the saved norm, and treats the cached target features
 and the lin heads as constants.
 
+The backbone may instead be the trained StyleGAN2 discriminator
+(``losses/disc_percept.py``, params with a ``"disc"`` key): the same heads,
+distance and solver path take its feature maps.
+
 In bfloat16 (the solver's bf16 mode) the backbone runs in the image's dtype;
 norms, squares and sums are taken in float32 and the normalized features are
 rounded back to the feature dtype, where the reference rounds them.
@@ -93,20 +97,41 @@ def normalize_feat(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 
 def extract_raw_features(params: Dict[str, Any], img: torch.Tensor) -> List[torch.Tensor]:
-    """[-1, 1] NHWC image -> un-normalized VGG16 slice outputs."""
+    """[-1, 1] NHWC image -> un-normalized backbone feature maps: the VGG16
+    slice outputs, or with a ``"disc"`` backbone (``losses/disc_percept.py``)
+    the trained discriminator's maps, which take [-1, 1] with no scaling layer."""
+    if "disc" in params:
+        from .disc_percept import disc_features
+
+        return disc_features(params["disc"], img)
     return vgg16_features(params["vgg"], scaling_layer(img))
+
+
+def backbone_in(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """``params`` with a discriminator backbone's feature layers cast to
+    ``dtype`` once (``disc_percept.disc_features`` casts them on every call
+    otherwise); a VGG backbone as it is."""
+    if "disc" in params:
+        from .disc_percept import cast_features
+
+        return dict(params, disc=cast_features(params["disc"], dtype))
+    return params
 
 
 def extract_features(params: Dict[str, Any], img: torch.Tensor) -> List[torch.Tensor]:
     return [normalize_feat(f) for f in extract_raw_features(params, img)]
 
 
-def distance_from_features(params, feats0, feats1):
-    """Per-sample LPIPS distance from pre-normalized features."""
-    total = None
+def distance_from_features(params, feats0, feats1, ret_per_layer: bool = False):
+    """Per-sample LPIPS distance from pre-normalized features; with
+    ``ret_per_layer`` also the list of per-layer distances."""
+    total, per_layer = None, []
     for f0, f1, lin_w in zip(feats0, feats1, params["lin"]):
         d = torch.mean(torch.sum((f0 - f1).float() ** 2 * lin_w, dim=-1), dim=(-2, -1))
+        per_layer.append(d)
         total = d if total is None else total + d
+    if ret_per_layer:
+        return total, per_layer
     return total
 
 

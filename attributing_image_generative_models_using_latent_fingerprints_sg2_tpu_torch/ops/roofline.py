@@ -54,6 +54,9 @@ def step_launches(dtype: str = "float32") -> Dict[str, int]:
 # blurs on its input width: pads (2, 2) before the 3x3 stride-2 conv (out r + 1)
 # and (1, 1) before the 1x1 stride-2 skip (out r - 1).
 DISC_BLUR_SHAPES = ((128, 256), (256, 128), (512, 64), (512, 32), (512, 16), (512, 8))
+# The quality studies' discriminator (64 px, channel_max 128), the perceptual backbone of
+# ``losses/disc_percept.py``: the same two blurs a block.
+STUDY_DISC_BLUR_SHAPES = ((128, 64), (128, 32), (128, 16), (128, 8))
 
 
 def train_launches(img_size: int, r1: bool) -> Dict[str, int]:
@@ -146,9 +149,9 @@ def main_path(name: str, n: int, dtype: str = "float32") -> Sequence[Tuple[str, 
         return [(f"C{c}_H{h}", blur4(n, c, h, h, dtype=dtype)) for c, h in BLUR4_SHAPES]
     if name == "blur4_adj":  # the backward's launches of blur4: H -> H + 1
         return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2), dtype)) for c, h in BLUR4_SHAPES]
-    if name == "blur4_disc":  # the discriminator's blurs and (``_adj``) their adjoints
+    if name in ("blur4_disc", "blur4_disc_study"):  # the discriminator's blurs and (``_adj``) their adjoints
         out = []
-        for c, r in DISC_BLUR_SHAPES:
+        for c, r in DISC_BLUR_SHAPES if name == "blur4_disc" else STUDY_DISC_BLUR_SHAPES:
             out += [(f"D_C{c}_R{r}_p22", blur4(n, c, r + 1, r + 1, (2, 2), dtype)),
                     (f"D_C{c}_R{r}_p11", blur4(n, c, r - 1, r - 1, (1, 1), dtype)),
                     (f"D_C{c}_R{r}_p22_adj", blur4(n, c, r, r, (1, 1), dtype)),

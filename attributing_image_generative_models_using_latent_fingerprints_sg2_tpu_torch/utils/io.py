@@ -1,4 +1,4 @@
-"""Run directories, config snapshots and ``result.txt``.
+"""Run directories, config snapshots, ``result.txt`` and checkpointed jsonl.
 
 Same layout and format as the reference package's ``utils/io.py``
 (ref ``src/utils.py:23-34``, ``src/main.py:18-21,151-154``).
@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import os
+import sys
 from typing import Any, List
 
 
@@ -43,3 +45,23 @@ def write_results(run_dir: str, bit_accs: List[float], attribution_acc: float) -
                 )
             )
     return path
+
+
+def read_jsonl_resumable(path: str) -> List[dict]:
+    """The records of a jsonl file written one line per finished point,
+    tolerating ONE torn final line (a process killed mid-append leaves a
+    partial record: it is dropped, so the writer reruns that point).  A
+    malformed line anywhere else is corruption and raises.  The study
+    driver's resume and the report read records through this one function."""
+    with open(path) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    recs: List[dict] = []
+    for i, line in enumerate(lines):
+        try:
+            recs.append(json.loads(line))
+        except json.JSONDecodeError:
+            if i == len(lines) - 1:
+                print(f"[jsonl] dropping torn trailing line in {path}", file=sys.stderr)
+                continue
+            raise
+    return recs

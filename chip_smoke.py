@@ -129,6 +129,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                with a snapshot resumed to 80 equal (both exports) to 80 steps
                uninterrupted, one metrics row a step; then ``cli.attribute
                --ckpt`` on the trained generator, its bit accuracy printed.
+16. studies -- the quality studies (``cli.study``) on the card at the study's
+               width (64 px, channel_max 128, style_dim 512, n_mlp 8, trained
+               3000 steps at batch 16, PCA over 10000 samples), one process a
+               run: a robustness point with the first training, the five
+               perceptual backbones on Jpeg (the two calibrated ones fit their
+               2AFC heads), an identification point, the perceptual run again
+               (all cached, no launch), then ``cli.report`` of the three;
+               ``--samples 2 --steps 40 --n 4`` (the study's 20 / 2000 / 20).
 
 bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
 2.  the launch-only rows of phase 2 again in bf16 at batch 2 and 16 (``_bf16``
@@ -144,7 +152,10 @@ bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
     device times, the library call chaining ``F.conv_transpose2d`` + add or the
     strided depthwise ``F.conv2d``); the FIR second derivative once in bf16
     against the plain bf16 versions on the CPU (0.03 of max), the skip chain's
-    among them.
+    among them.  ``blur4_bf16`` at the discriminator's shapes (``D_`` rows, the
+    disc perceptual backbone's: forward and adjoint against plain bf16 at batch
+    2, with the study's 64 px discriminator too; launch-only, plain and library
+    times at batch 16 under ``disc_`` keys).
 3.  recovery in bf16: phase 3's tiny configuration and gates, ``dtype="bfloat16"``.
 5.  step16 -- the 16-chain 256px perceptual solve step at full width in the
     turns float32, bf16, bf16, float32 (CUDA events, median of 5 steps a
@@ -165,11 +176,16 @@ bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
 13. studies_bf16 -- ``identification_point`` and ``model_attribution_point`` at
     their defaults (bf16) on the tiny configuration, short, with launch
     counts: float32 kernels only in the target renders, as in attribute_bf16.
+16. the studies solve in bf16: every ``_bf16`` kernel launched by the
+    perceptual run (``blur4_bf16`` inside the discriminator's feature pass),
+    float32 kernels only in the target renders, the calibration and the
+    training.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel (its launches on every path above: ``launches`` is phase 5's for
 a float32 kernel and the bf16 ``cli.attribute`` run's for a ``_bf16`` one,
-``launches_training`` phase 14's timed steps; the bf16 skip chain's times are
+``launches_training`` phase 14's timed steps, ``launches_studies`` phase 16's
+three study runs; the bf16 skip chain's times are
 its one launch, its per-level shapes under ``per_level_``), and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero at once.
@@ -372,8 +388,10 @@ def launch_cases(torch, mods, n, rnd, act=None):
     up_cuda, vgg_cuda, slice_cuda, upf, roof = mods
     k1 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)) * 4.0)
     kt = torch.tensor(k1, device="cuda")
-    disc = n == 16 and act is None  # the discriminator's rows: float32 only
     bf16_route = act is not None  # the bf16 cases and their float32 references: the chain rows too
+    # the discriminator's rows: float32 at batch 16 (batch 2 is held through autograd in phase 2's
+    # first part); bf16 at both, at batch 2 the study's discriminator (64 px, channel_max 128) too
+    disc = n == 16 or bf16_route
     if act is None:
         act = lambda t: t  # noqa: E731
     dt = act(torch.zeros(1, device="cuda")).dtype  # the kernels' dtype
@@ -412,14 +430,19 @@ def launch_cases(torch, mods, n, rnd, act=None):
         # [n, r, r, c] and, for the adjoint, pads 3 - p on the forward's output
         k0 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)))
         k0t = torch.tensor(k0, device="cuda")
-        counts = dict(roof.main_path("blur4_disc", n))
-        for c, r in roof.DISC_BLUR_SHAPES:
+        counts = dict(roof.main_path("blur4_disc", n, dname))
+        shapes = list(roof.DISC_BLUR_SHAPES)
+        if bf16_route and n == 2:
+            counts.update(roof.main_path("blur4_disc_study", n, dname))
+            shapes += list(roof.STUDY_DISC_BLUR_SHAPES)
+        for c, r in shapes:
             for p, adj in ((2, False), (1, False), (2, True), (1, True)):
                 q, size = (3 - p, r + 2 * p - 3) if adj else (p, r)
                 label = f"D_C{c}_R{r}_p{p}{p}" + ("_adj" if adj else "")
-                x = rnd(n, size, size, c)
+                x = arnd(n, size, size, c)
                 taps = k0 if adj else k0[::-1]  # the launch takes correlation taps; the adjoint's are unflipped
-                wl = (torch.outer(k0t, k0t) if adj else torch.outer(k0t, k0t).flip(0, 1)).expand(c, 1, 4, 4).contiguous()
+                wl = (torch.outer(k0t, k0t) if adj else torch.outer(k0t, k0t).flip(0, 1)).expand(c, 1, 4, 4)
+                wl = wl.contiguous().to(dt)
                 kf = lambda x=x, t=taps, q=q: up_cuda.blur4_launch(x, t, t, (q, q), (q, q))
                 pf = lambda x=x, t=taps, q=q: up_cuda.blur4_plain(x, t[::-1], t[::-1], (q, q), (q, q))
                 cases.append(("blur4", label, kf, pf,
@@ -1811,6 +1834,229 @@ def phase_train_tiny(torch, port, gpu):
           "attribute_seconds": time.time() - t0, "gpu": gpu})
 
 
+# Phase 16 runs ``cli.study`` in processes of its own; this runner wraps it so that the
+# process reports its launch counts: by kernel over the whole run, and those made inside
+# the windows where float32 launches belong (the target renders ``pipeline.synthesize``,
+# the 2AFC calibration, the generator's training) and inside the discriminator's
+# feature pass, with the shapes of every bf16 ``blur4`` launch.
+STUDY_RUNNER = r"""
+import json, sys, time
+root, counts_path, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+sys.path.insert(0, root)
+PORT = "attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch"
+import importlib
+import torch
+cuda_mod = importlib.import_module(PORT + ".ops._cuda")
+up = importlib.import_module(PORT + ".ops.upfirdn2d_cuda")
+pl = importlib.import_module(PORT + ".fingerprint.pipeline")
+cal = importlib.import_module(PORT + ".losses.calibrate")
+dp = importlib.import_module(PORT + ".losses.disc_percept")
+est = importlib.import_module(PORT + ".eval.study")
+cli = importlib.import_module(PORT + ".cli.study")
+windows = {w: {n: 0 for n in cuda_mod.KERNELS} for w in ("renders", "calibration", "training", "disc_features")}
+seconds = {w: 0.0 for w in windows}
+
+def counted(window, fn):
+    def wrapped(*args, **kwargs):
+        before, t0 = cuda_mod.launch_counts(), time.time()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[window] += time.time() - t0
+            for name, n in cuda_mod.launch_counts().items():
+                windows[window][name] += n - before[name]
+    return wrapped
+
+pl.synthesize = counted("renders", pl.synthesize)
+cal.calibrate_lin_heads = counted("calibration", cal.calibrate_lin_heads)
+cal.rank_accuracy = counted("calibration", cal.rank_accuracy)
+est.ensure_trained = counted("training", est.ensure_trained)
+dp.disc_features = counted("disc_features", dp.disc_features)
+shapes = set()
+launch = up.blur4_launch
+
+def blur4_launch(x, fy, fx, pad_y, pad_x):
+    if x.dtype == torch.bfloat16:
+        shapes.add((tuple(x.shape), tuple(pad_y)))
+    return launch(x, fy, fx, pad_y, pad_x)
+
+up.blur4_launch = blur4_launch
+rc = cli.main(argv)
+cuda = torch.cuda.is_available()
+if cuda:
+    torch.cuda.synchronize()
+with open(counts_path, "w") as f:
+    json.dump({"launches": cuda_mod.launch_counts(), "windows": windows, "window_seconds": seconds,
+               "blur4_bf16_shapes": sorted(shapes), "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0},
+              f)
+sys.exit(rc)
+"""
+
+STUDY_KEYS = {"img_size", "channel_max", "ckpt", "key_len", "sigma", "shift", "attack", "loss", "samples", "steps",
+              "n_starts", "chain_steps_per_sample", "mean_bit_acc", "bit_acc_ci95", "bit_acc_min", "exact_match",
+              "exact_match_k", "exact_match_ci95", "mean_final_loss", "per_bit_acc", "band_sigma",
+              "band_sigma_median", "content_sigma_median", "spectrum_decile_sigmas", "tag", "train_steps",
+              "bit_sigma_spearman", "wall_s"}
+STUDY_BUDGET = ["--samples", "2", "--steps", "40", "--n", "4"]
+
+
+def study_run(work: str, argv, timeout: int, module: str = "study"):
+    """One ``cli.study`` (through STUDY_RUNNER) or ``cli.report`` process in ``work``:
+    (seconds, stdout, the runner's counts or None)."""
+    counts_path = os.path.join(work, "counts.json")
+    if os.path.exists(counts_path):
+        os.remove(counts_path)
+    if module == "study":
+        cmd = [sys.executable, "-c", STUDY_RUNNER, ROOT, counts_path, *argv]
+    else:
+        cmd = [sys.executable, "-m", f"{PORT}.cli.{module}", *argv]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=work, capture_output=True, text=True, timeout=timeout, env=env)
+    seconds = time.time() - t0
+    print(r.stdout, end="", flush=True)
+    check(r.returncode == 0, f"cli.{module} {argv} returned {r.returncode}: {r.stderr[-3000:]}")
+    counts = None
+    if module == "study":
+        with open(counts_path) as f:
+            counts = json.load(f)
+    return seconds, r.stdout, counts
+
+
+def study_records(work: str, name: str, tags):
+    """The records of ``tags`` in ``work``'s ``result/study_<name>_torch.json.jsonl``,
+    each complete (identification: its own keys) with a finite final loss."""
+    with open(os.path.join(work, "result", f"study_{name}_torch.json.jsonl")) as f:
+        recs = {r["tag"]: r for r in map(json.loads, f)}
+    check(sorted(recs) == sorted(tags), f"study_{name}: records {sorted(recs)}, expected {sorted(tags)}")
+    for tag, r in recs.items():
+        if name == "identification":
+            check({"measured_p_bit", "by_registry_size", "mean_bit_acc"} <= set(r), f"{tag}: record {sorted(r)}")
+            check([row["registry_size"] for row in r["by_registry_size"]] == [10, 100, 1000], f"{tag}: registry")
+        else:
+            check(set(r) == STUDY_KEYS, f"{tag}: keys {sorted(set(r) ^ STUDY_KEYS)} differ")
+            check(r["mean_final_loss"] == r["mean_final_loss"] and abs(r["mean_final_loss"]) < float("inf"),
+                  f"{tag}: final loss {r['mean_final_loss']}")
+            check(len(r["per_bit_acc"]) == r["key_len"] == 32, f"{tag}: per-bit accuracy")
+    return recs
+
+
+def point_lines(stdout: str) -> dict:
+    """{tag: {"wall_s", "peak_gb"}} from ``cli.study``'s per-point lines."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"\[study\] (\S+): .*?, ([0-9.]+)s, peak ([0-9.]+) GB", stdout):
+        out[m.group(1)] = {"wall_s": float(m.group(2)), "peak_gb": float(m.group(3))}
+    return out
+
+
+def check_study_launches(counts, path: str, need_bf16) -> None:
+    """A study run's launches: float32 kernels only inside its renders,
+    calibration and training (which launch no bf16 kernel); the bf16 kernels in
+    ``need_bf16`` launched."""
+    w = counts["windows"]
+    inside = {n: w["renders"][n] + w["calibration"][n] + w["training"][n] for n in counts["launches"]}
+    check(of_dtype(counts["launches"]) == of_dtype(inside) and not any(of_dtype(inside, "bfloat16").values()),
+          f"{path}: float32 launches {of_dtype(counts['launches'])} outside renders, calibration and training "
+          f"{inside}")
+    for name in need_bf16:
+        check(counts["launches"][name] > 0, f"kernel {name} was not launched by {path}")
+
+
+def phase_studies(torch, port, gpu, device="cuda", budget=STUDY_BUDGET):
+    """Phase 16: the port's ``cli.study`` on the card, one process a run, in a
+    git-ignored work directory (so the default ``result/study_<name>_torch.json``
+    names are used there), at the study's own width: StyleGAN2 at 64 px,
+    channel_max 128, style_dim 512, n_mlp 8, trained 3000 steps at batch 16 by
+    ``ensure_trained`` (with its discriminator), PCA over 10000 samples.
+
+    1. ``robustness --only 64px_kl32_s6_Jpeg``: trains the recipe once into the
+       phase's ``--cache_dir``; the training's wall time, the pipeline's (PCA
+       included), the point's time and its peak memory;
+    2. ``perceptual --only _Jpeg``: the five backbones (mse, disc, vgg_rand,
+       disc_cal, vgg_cal; the ``_cal`` ones print their rank accuracy before and
+       after calibration): every ``_bf16`` kernel launched, ``blur4_bf16`` inside
+       the discriminator's feature pass, float32 kernels only in the target
+       renders and the calibration;
+    3. ``identification --only ident_64px_kl32_s6_None``;
+    4. step 2 again: every point ``cached``, nothing trained, no launch;
+    5. ``cli.report robustness perceptual identification``: the three tables.
+
+    Every run exits 0 with complete records and finite losses.  Cut from the
+    study's defaults: ``--samples 2`` (20), ``--steps 40`` (2000), ``--n 4`` (20),
+    and only the points named above run."""
+    work = os.path.join(ROOT, "_chip_work", "studies")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    base = ["--device", device, "--cache_dir", os.path.join(work, "ckpts"), *budget]
+    bf16_names = [n for n in port["_cuda"].KERNELS if n.endswith(BF16)]
+    runs, line = {}, {"phase": "studies", "img_size": 64, "channel_max": 128, "style_dim": 512, "n_mlp": 8,
+                      "train_steps": 3000, "train_batch": 16, "n_pca_samples": 10000, "samples": 2, "steps": 40,
+                      "restarts": 4, "dtype": "bfloat16"}
+
+    seconds, out, counts = study_run(work, ["robustness", "--only", "64px_kl32_s6_Jpeg", *base], 900)
+    study_records(work, "robustness", ["64px_kl32_s6_Jpeg"])
+    check(counts["launches"]["blur4"] > 0 and counts["windows"]["training"]["blur4"] > 0, "robustness: no training")
+    check_study_launches(counts, "study robustness", [n + BF16 for n in ("blur4", "upblur4", "upblur4_adj")])
+    runs["robustness"] = counts
+    import re
+
+    line["train_seconds"] = counts["window_seconds"]["training"]
+    line["pipeline_seconds"] = float(re.search(r"pipeline 64px cm128 built in ([0-9.]+)s", out).group(1))
+    points = point_lines(out)
+    line["robustness"] = {"process_seconds": seconds, "points": points, "peak_bytes": counts["peak_bytes"],
+                          # a point's wall time counts the training it waited for, as in the reference
+                          "point_seconds_after_training": points["64px_kl32_s6_Jpeg"]["wall_s"] - line["train_seconds"]}
+
+    perceptual = ["perceptual", "--only", "_Jpeg", *base]
+    tags = [f"64px_kl32_s6_{b}_Jpeg" for b in ("mse", "disc", "vgg_rand", "disc_cal", "vgg_cal")]
+    seconds, out, counts = study_run(work, perceptual, 600)
+    recs = study_records(work, "perceptual", tags)
+    check_study_launches(counts, "study perceptual", bf16_names)
+    check(counts["windows"]["training"] == {n: 0 for n in counts["launches"]}, "perceptual: trained again")
+    disc_blur = counts["windows"]["disc_features"]["blur4" + BF16]
+    check(disc_blur > 0, "perceptual: blur4_bf16 never launched inside the discriminator's feature pass")
+    cal_lines = re.findall(r"2AFC calibration: rank acc ([0-9.]+) -> ([0-9.]+) \(([0-9.]+)s\)", out)
+    check(len(cal_lines) == 2, f"perceptual: {len(cal_lines)} calibration lines")
+    check(of_dtype(counts["windows"]["calibration"])["conv3x3_relu"] > 0
+          and of_dtype(counts["windows"]["calibration"])["blur4"] > 0, "perceptual: calibration's float32 features")
+    runs["perceptual"] = counts
+    line["perceptual"] = {
+        "process_seconds": seconds, "points": point_lines(out), "peak_bytes": counts["peak_bytes"],
+        "mean_bit_acc": {t: recs[t]["mean_bit_acc"] for t in tags},
+        "mean_final_loss": {t: recs[t]["mean_final_loss"] for t in tags},
+        "calibration": [{"rank_acc_before": float(a), "rank_acc_after": float(b), "seconds": float(c)}
+                        for a, b, c in cal_lines],
+        "calibration_seconds": counts["window_seconds"]["calibration"],
+        "launches_in_calibration": {k: v for k, v in counts["windows"]["calibration"].items() if v},
+        "blur4_bf16_in_disc_features": disc_blur,
+        "blur4_bf16_shapes": counts["blur4_bf16_shapes"]}
+
+    seconds, out, counts = study_run(work, ["identification", "--only", "ident_64px_kl32_s6_None", *base], 600)
+    recs = study_records(work, "identification", ["ident_64px_kl32_s6_None"])
+    check_study_launches(counts, "study identification", [n + BF16 for n in ("blur4", "upblur4", "upblur4_adj")])
+    runs["identification"] = counts
+    line["identification"] = {"process_seconds": seconds, "p_bit": recs["ident_64px_kl32_s6_None"]["measured_p_bit"],
+                              "wall_s": recs["ident_64px_kl32_s6_None"]["wall_s"], "peak_bytes": counts["peak_bytes"]}
+
+    seconds, out, counts = study_run(work, perceptual, 300)
+    check(all(f"[study] {t}: cached" in out for t in tags), "resume: not every point was cached")
+    check("ready in" not in out and not any(counts["launches"].values()),
+          f"resume: trained or launched {counts['launches']}")
+    line["resume"] = {"process_seconds": seconds, "launches": sum(counts["launches"].values())}
+
+    seconds, out, _ = study_run(work, ["robustness", "perceptual", "identification"], 120, module="report")
+    for head in ("## study_robustness (1 points)", "## study_perceptual (5 points)",
+                 "## study_identification (1 points)"):
+        check(head in out, f"report: no '{head}'")
+    line["report_seconds"] = seconds
+    line["gpu"] = gpu
+    emit(line)
+    shutil.rmtree(work, ignore_errors=True)
+    return {n: sum(c["launches"][n] for c in runs.values()) for n in port["_cuda"].KERNELS}
+
+
 def import_port() -> dict:
     """The port's modules that the phases drive, by short name."""
     import importlib
@@ -1897,6 +2143,9 @@ def main() -> int:
     t0 = time.time()
     phase_train_tiny(torch, port, gpu)
     emit({"phase": "train_tiny_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    study_counts = phase_studies(torch, port, gpu)
+    emit({"phase": "studies_done", "seconds": time.time() - t0})
 
     # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
     through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
@@ -1932,6 +2181,7 @@ def main() -> int:
             "launches_model_attribution": model_attribution_counts[name],
             "launches_training": training_counts[name],
             "launches_bf16_studies": studies_counts[name],
+            "launches_studies": study_counts[name],
             "max_abs_err": err, **times, "batch": 16,
             "launches_per_step": per_step[name],
             # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`) and blur4 at
