@@ -1,13 +1,17 @@
 """Robustness attacks as plain functions on NHWC tensors in [-1, 1]
-(the reference package's ``attacks/``, eval mode: the strongest setting of
-each attack, applied deterministically; the train-mode random strengths
-belong to GAN training and are not ported).
+(the reference package's ``attacks/``).
 
-``make_attack`` builds ``(img, generator=None, noise=None) -> img`` for the
-targets; ``make_solver_attack`` the deterministic, differentiable channel
-model that attack-aware solving pushes its estimate through.  Random
-attacks (Noise, Combination) draw from an explicit ``torch.Generator`` on
-the CPU, or take the unit-normal ``noise`` array itself.
+``make_attack(cfg, is_train)`` builds ``(img, generator=None, noise=None) ->
+img`` for the targets.  Eval mode (``is_train=False``) applies the strongest
+setting of each attack deterministically; train mode draws the strengths:
+Blur a filter size from (3, 5, blur_filter_size)
+(:func:`blur.gaussian_blur_random`), Crop a window offset
+(:func:`crop.random_crop`), Jpeg rounds differentiably, and Combination
+applies each member with probability 0.5.  ``make_solver_attack`` builds the
+deterministic, differentiable channel model that attack-aware solving pushes
+its estimate through.  Random draws come from an explicit
+``torch.Generator`` on the CPU; Noise also takes the unit-normal ``noise``
+array itself, and the train-mode functions take their drawn index or offset.
 """
 
 from __future__ import annotations
@@ -17,15 +21,15 @@ from typing import Callable, Optional
 import torch
 
 from ..config import AttackConfig
-from .blur import gaussian_blur
-from .crop import center_crop
+from .blur import gaussian_blur, gaussian_blur_random
+from .crop import center_crop, random_crop
 from .diffjpeg import diff_round, jpeg_attack, jpeg_compress_decompress, quality_to_factor  # noqa: F401
 from .noise import gaussian_noise
 
 AttackFn = Callable[..., torch.Tensor]
 
 
-def make_attack(cfg: AttackConfig) -> Optional[AttackFn]:
+def make_attack(cfg: AttackConfig, is_train: bool = False) -> Optional[AttackFn]:
     """``(img, generator=None, noise=None) -> img`` for cfg.augmentation; None for "None"."""
     name = cfg.augmentation
     if name == "None":
@@ -33,17 +37,32 @@ def make_attack(cfg: AttackConfig) -> Optional[AttackFn]:
     if name == "Noise":
         return lambda img, generator=None, noise=None: gaussian_noise(img, generator, cfg.noise_sigma, noise)
     if name == "Blur":
+        if is_train:
+            return lambda img, generator=None, noise=None: gaussian_blur_random(
+                img, generator, (cfg.blur_sigma,), (3, 5, cfg.blur_filter_size))
         return lambda img, generator=None, noise=None: gaussian_blur(img, cfg.blur_sigma, cfg.blur_filter_size)
     if name == "Crop":
+        if is_train:
+            return lambda img, generator=None, noise=None: random_crop(img, generator, cfg.crop_ratio)
         return lambda img, generator=None, noise=None: center_crop(img, cfg.crop_ratio)
     if name == "Jpeg":
-        return lambda img, generator=None, noise=None: jpeg_attack(img, cfg.jpeg_quality, differentiable=False)
+        return lambda img, generator=None, noise=None: jpeg_attack(img, cfg.jpeg_quality, differentiable=is_train)
     if name == "Combination":
-        # every member applies in eval mode: blur, then noise, then hard-rounded JPEG
+        # blur, then noise, then JPEG: in eval mode every member applies, in train
+        # mode each with probability 0.5 (three uniforms drawn before the noise)
         def fn(img, generator=None, noise=None):
-            img = gaussian_blur(img, cfg.blur_sigma, cfg.blur_filter_size)
-            img = gaussian_noise(img, generator, cfg.noise_sigma, noise)
-            return jpeg_attack(img, cfg.jpeg_quality, differentiable=False)
+            apply = [True] * 3
+            if is_train:
+                g = generator if generator is not None else torch.Generator().manual_seed(0)
+                apply = [bool(p > 0.5) for p in torch.rand(3, generator=g)]
+                generator = g
+            if apply[0]:
+                img = gaussian_blur(img, cfg.blur_sigma, cfg.blur_filter_size)
+            if apply[1]:
+                img = gaussian_noise(img, generator, cfg.noise_sigma, noise)
+            if apply[2]:
+                img = jpeg_attack(img, cfg.jpeg_quality, differentiable=is_train)
+            return img
 
         return fn
     raise ValueError(f"Not available attack: {name!r}")

@@ -36,12 +36,11 @@ from ..config import Config
 from ..fingerprint import attribute as attr
 from ..fingerprint import encoder as enc_mod
 from ..fingerprint import pipeline as pl
-from ..losses.lpips import build_lpips_params
 from ..utils.device import resolve_device
 from ..utils.image import make_image, store_results
 from ..utils.io import make_run_dir, save_config, write_results
 from ..utils.lhs import fold_in
-from .common import build_parser, config_from_args
+from .common import build_parser, config_from_args, resolve_lpips
 
 
 @dataclasses.dataclass
@@ -129,15 +128,12 @@ def run(argv=None) -> AttributeRun:
     g_atk = torch.Generator().manual_seed(state.seed + 3)
     opt_seed = state.seed + 2
     t0 = time.time()
-    perceptual = cfg.attribution.loss == "perceptual"
-    lpips_params = None
-    if perceptual and (args.lpips_vgg or args.lpips_lin):
-        lpips_params = build_lpips_params(g_build, device, args.lpips_vgg, args.lpips_lin)
+    want_lpips, lpips_params = resolve_lpips(args, cfg)
     attacked = cfg.attack.augmentation != "None"
     pipe = pl.build_pipeline(cfg.model, cfg.fingerprint, generator=g_build, device=device,
                              attack_cfg=cfg.attack if attacked else None,
                              ckpt_path=cfg.model.ckpt, lpips_params=lpips_params,
-                             want_lpips=perceptual)
+                             want_lpips=want_lpips)
     _sync(device)
     print(f"[attribute] pipeline built in {time.time() - t0:.1f}s")
 

@@ -49,9 +49,14 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--save_dir", type=str, default="./result/", help="output directory")
     p.add_argument("--seed", type=int, default=0, help="global seed")
     p.add_argument("--lpips_vgg", type=str, default=None,
-                   help="torchvision-format VGG16 state dict for the LPIPS backbone")
+                   help="torchvision-format state dict of the LPIPS backbone (--lpips_net's)")
     p.add_argument("--lpips_lin", type=str, default=None,
-                   help="LPIPS linear-head weights (vgg.pth)")
+                   help="LPIPS linear-head weights ({vgg,alex,squeeze}.pth)")
+    p.add_argument("--lpips_net", type=str, default="vgg", choices=["vgg", "alex", "squeeze"],
+                   help="LPIPS backbone (--lpips_vgg then names that net's torchvision state dict)")
+    p.add_argument("--lpips_disc", type=str, default=None,
+                   help="a trained discriminator's export (cli.train's <out>.disc.npz) as the perceptual "
+                   "backbone (losses/disc_percept.py)")
     # robustness
     p.add_argument("--augmentation", type=str, default="None",
                    help="attack: None | Noise | Blur | Jpeg | Crop | Combination")
@@ -122,3 +127,35 @@ def config_from_args(args: argparse.Namespace) -> Config:
         run=RunConfig(sample_size=args.sample_size, batch_size=args.batch_size,
                       save_dir=args.save_dir, seed=args.seed, device=args.device, dtype=args.dtype),
     )
+
+
+def custom_lpips(args: argparse.Namespace, device):
+    """The LPIPS params the flags ask for, or None without LPIPS flags: the
+    discriminator of ``--lpips_disc``, else ``build_lpips_params`` on
+    ``--lpips_net`` with the given files (random weights drawn from
+    ``torch.Generator().manual_seed(0)``, as the reference package draws them
+    from ``PRNGKey(0)``), on ``device``."""
+    if args.lpips_disc:
+        from ..losses.disc_percept import load_disc_percept
+
+        return load_disc_percept(args.lpips_disc, device=device)
+    if args.lpips_vgg or args.lpips_lin or args.lpips_net != "vgg":
+        import torch
+
+        from ..losses.lpips import build_lpips_params
+
+        return build_lpips_params(torch.Generator().manual_seed(0), device, args.lpips_vgg, args.lpips_lin,
+                                  net=args.lpips_net)
+    return None
+
+
+def resolve_lpips(args: argparse.Namespace, cfg: Config, want: bool = True):
+    """The LPIPS wiring of the solving CLIs: ``(want_default, custom_params)``.
+    Pass the first to ``build_pipeline(want_lpips=...)`` and the second, where
+    not None, as its ``lpips_params``.  A perceptual run with LPIPS flags gets
+    :func:`custom_lpips` on ``cfg.run.device``; ``want=False`` (a run that
+    solves nothing) and the mse loss build no LPIPS."""
+    if not (want and cfg.attribution.loss == "perceptual"):
+        return False, None
+    params = custom_lpips(args, cfg.run.device)
+    return params is None, params

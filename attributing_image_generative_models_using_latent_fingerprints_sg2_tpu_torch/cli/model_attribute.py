@@ -37,11 +37,10 @@ from ..config import Config
 from ..fingerprint import attribute as attr
 from ..fingerprint import pipeline as pl
 from ..fingerprint.model_attribution import attribute_model, calibrate_open_set_threshold
-from ..losses.lpips import build_lpips_params
 from ..utils.device import resolve_device
 from ..utils.image import load_image, to_training_range
 from ..utils.lhs import fold_in
-from .common import build_parser, config_from_args
+from .common import build_parser, config_from_args, resolve_lpips
 
 
 def _parse_models(specs: Sequence[str]) -> List[Tuple[str, str]]:
@@ -127,17 +126,13 @@ def run(argv=None) -> dict:
 
     # one PCA per model, LPIPS built once and shared
     t0 = time.time()
-    perceptual = cfg.attribution.loss == "perceptual"
     attacked = cfg.attack.augmentation != "None"
-    shared_lpips = None
-    if perceptual and (args.lpips_vgg or args.lpips_lin):
-        shared_lpips = build_lpips_params(torch.Generator().manual_seed(cfg.run.seed), device, args.lpips_vgg,
-                                          args.lpips_lin)
+    want_lpips, shared_lpips = resolve_lpips(args, cfg)
     pipes: Dict[str, pl.Pipeline] = {}
     for i, (name, path) in enumerate(models):
         pipe = pl.build_pipeline(cfg.model, cfg.fingerprint, generator=fold_in(cfg.run.seed, i), device=device,
                                  attack_cfg=cfg.attack if attacked else None, ckpt_path=path,
-                                 lpips_params=shared_lpips, want_lpips=perceptual and shared_lpips is None)
+                                 lpips_params=shared_lpips, want_lpips=want_lpips and shared_lpips is None)
         shared_lpips = pipe.lpips_params
         pipes[name] = pipe
     names = list(pipes)

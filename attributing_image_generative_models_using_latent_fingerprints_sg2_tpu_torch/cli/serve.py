@@ -27,10 +27,9 @@ import torch
 from ..fingerprint import encoder as enc_mod
 from ..fingerprint import pipeline as pl
 from ..fingerprint.keys import KeyRegistry
-from ..losses.lpips import build_lpips_params
 from ..serving import InferenceEngine, ServeConfig, make_server
 from ..utils.device import resolve_device
-from .common import build_parser, config_from_args
+from .common import build_parser, config_from_args, resolve_lpips
 
 
 def build_server(argv=None) -> Tuple[InferenceEngine, ThreadingHTTPServer]:
@@ -60,10 +59,7 @@ def build_server(argv=None) -> Tuple[InferenceEngine, ThreadingHTTPServer]:
 
     g_build = torch.Generator().manual_seed(cfg.run.seed)
     attacked = cfg.attack.augmentation != "None"
-    want_lpips = not args.no_attribute and cfg.attribution.loss == "perceptual"
-    lpips_params = None
-    if want_lpips and (args.lpips_vgg or args.lpips_lin):
-        lpips_params = build_lpips_params(g_build, device, args.lpips_vgg, args.lpips_lin)
+    want_lpips, lpips_params = resolve_lpips(args, cfg, want=not args.no_attribute)
     pipe = pl.build_pipeline(cfg.model, cfg.fingerprint, generator=g_build, device=device,
                              attack_cfg=cfg.attack if attacked else None, ckpt_path=cfg.model.ckpt,
                              lpips_params=lpips_params, want_lpips=want_lpips)

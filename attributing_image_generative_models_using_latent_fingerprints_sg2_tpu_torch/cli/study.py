@@ -18,9 +18,8 @@ subcommands, operating points and tags.  Every number is measured at
 - ``model_attribution``: which of 4 trained generators made an image, and a
   held-out fifth;
 - ``spectrum``: kl=64 recovery on generators trained on rank-limited data;
-- ``capacity``: watermark visibility (FID) against accuracy.  It needs FID
-  (``eval.sweep``), which the port does not have yet: the subcommand is
-  refused with that message.
+- ``capacity``: watermark visibility (FID, the trained discriminator's
+  Frechet distance, LPIPS, MSE) against accuracy, through ``eval.sweep``.
 
 Each finished point is appended to ``<out>.jsonl`` at once, so a run killed
 mid-study resumes where it stopped (finished tags are skipped); the table
@@ -36,6 +35,7 @@ Run (on the card by default; ``--device cpu`` runs the plain versions):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -537,10 +537,46 @@ def cmd_model_attribution(args) -> int:
 
 
 def cmd_capacity(args) -> int:
-    """Watermark visibility (FID / LPIPS / MSE) against accuracy: needs FID."""
-    print("[study] capacity: not ported yet. It measures watermark visibility by FID through eval.sweep, "
-          "which waits for the port's FID (eval/fid.py, eval/inception.py, eval/sweep.py).", file=sys.stderr)
-    return 2
+    """Watermark visibility (FID, discriminator-feature FD, LPIPS, MSE)
+    against accuracy on the 64 px recipe (with its discriminator): key_len
+    (32, 64) x sigma (3, 6), ``max(8, samples // 2)`` samples, solved at a
+    fixed 500-step / 8-restart mse budget in bf16 with the visibility metrics;
+    then the same grid (same seed, so the same targets) at the headline budget
+    (``--steps`` / ``--n``) without FID, merged in as ``mean_bit_acc_full`` /
+    ``attribution_acc_full`` (``full_budget``), so the table reads at the
+    headline rows' operating point."""
+    from ..config import AttributionConfig, ModelConfig
+    from ..eval.sweep import run_sweep
+    from ..losses.disc_percept import load_disc_percept
+
+    ckpt = _trained(args, img_size=64, channel_max=128, train_steps=3000, need_disc=True)
+    disc_params = load_disc_percept(ckpt + ".disc.npz", device=args.device)["disc"]
+    mcfg = ModelConfig(img_size=64, channel_max=128, ckpt=ckpt)
+    samples = max(8, args.samples // 2)
+    grid = dict(key_lens=(32, 64), sigmas=(3.0, 6.0), samples=samples, ckpt_path=ckpt, dtype="bfloat16",
+                device=args.device)
+    t0 = time.time()
+    pts = run_sweep(args.seed, mcfg, acfg=AttributionConfig(steps=500, n_starts=8, loss="mse"), with_fid=True,
+                    disc_params=disc_params, **grid)
+    print(f"[study] capacity sweep (500/8, FID) in {time.time() - t0:.1f}s, peak {_peak_gb(args.device):.3f} GB",
+          flush=True)
+    t0 = time.time()
+    pts_full = run_sweep(args.seed, mcfg, acfg=AttributionConfig(steps=args.steps, n_starts=args.n, loss="mse"),
+                         with_fid=False, **grid)
+    print(f"[study] capacity sweep ({args.steps}/{args.n}) in {time.time() - t0:.1f}s", flush=True)
+    recs = [dataclasses.asdict(p) for p in pts]
+    full_by_key = {(p.key_len, p.sigma, p.shift): p for p in pts_full}
+    for r in recs:
+        fp = full_by_key.get((r["key_len"], r["sigma"], r["shift"]))
+        r["mean_bit_acc_full"] = fp.mean_bit_acc if fp else None
+        r["attribution_acc_full"] = fp.attribution_acc if fp else None
+        r["full_budget"] = f"{args.steps}/{args.n}"
+        r["samples"] = samples
+    out = args.out or "result/study_capacity_torch.json"
+    with open(out, "w") as f:
+        json.dump(recs, f, indent=2)
+    print(f"[study] wrote {os.path.abspath(out)} ({len(recs)} points, incl. full-budget bit-acc column)")
+    return 0
 
 
 def cmd_identification(args) -> int:
@@ -663,10 +699,9 @@ def cmd_identification(args) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.cmd != "capacity":
-        from ..utils.device import resolve_device
+    from ..utils.device import resolve_device
 
-        resolve_device(args.device)  # raises without CUDA unless --device cpu
+    resolve_device(args.device)  # raises without CUDA unless --device cpu
     os.makedirs("result", exist_ok=True)
     return {
         "headline": cmd_headline,

@@ -392,9 +392,21 @@ def attribute_chunked(
     return best
 
 
-def evaluate_attribution(result: AttributionResult, true_keys: torch.Tensor) -> Dict[str, Any]:
-    """Per-sample bit accuracy and exact-match attribution accuracy."""
+def evaluate_attribution(result: AttributionResult, true_keys: torch.Tensor, *,
+                         basis: Optional[FingerprintBasis] = None,
+                         true_w0: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """Per-sample bit accuracy and exact-match attribution accuracy.  With
+    ``basis`` and ``true_w0`` [S, D] also the cosine of the recovered content
+    latent against the true one (``latent_cos`` [S], its mean
+    ``mean_latent_cos``; the denominator floored at 1e-12)."""
     acc = bit_accuracy(result.key_bits, true_keys.to(result.key_bits.device))
     exact = (acc >= 1.0).float()
-    return {"bit_acc": acc, "mean_bit_acc": acc.mean(), "attribution_acc": exact.mean(),
-            "exact": exact}
+    out = {"bit_acc": acc, "mean_bit_acc": acc.mean(), "attribution_acc": exact.mean(), "exact": exact}
+    if basis is not None and true_w0 is not None:
+        w0_rec = content_latent(basis, result.alpha)
+        true_w0 = true_w0.to(w0_rec.device)
+        num = torch.sum(w0_rec * true_w0, dim=-1)
+        den = torch.linalg.norm(w0_rec, dim=-1) * torch.linalg.norm(true_w0, dim=-1)
+        out["latent_cos"] = num / torch.clamp(den, min=1e-12)
+        out["mean_latent_cos"] = out["latent_cos"].mean()
+    return out

@@ -20,8 +20,15 @@ the raw feature and the saved norm, and treats the cached target features
 and the lin heads as constants.
 
 The backbone may instead be the trained StyleGAN2 discriminator
-(``losses/disc_percept.py``, params with a ``"disc"`` key): the same heads,
-distance and solver path take its feature maps.
+(``losses/disc_percept.py``, params with a ``"disc"`` key), or the
+reference's two other LPIPS nets, AlexNet (relu1..relu5, params ``{"net":
+[5 convs]}``) and SqueezeNet1.1 (relu1..relu7, params ``{"net": {"conv0",
+"fires"}}``): the same heads, distance and solver path take their feature
+maps.  Those two are plain ``F.conv2d`` in NCHW (the reference computes them
+outside Pallas), their weights HWIO as the reference stores them and cast to
+the input's dtype.  Beside the lin-head distance sit the reference's other
+distance modes: :func:`mse_per_sample`, :func:`lpips_net_mode` (no lin heads)
+and :func:`dssim_per_sample`.
 
 In bfloat16 (the solver's bf16 mode) the backbone runs in the image's dtype;
 norms, squares and sums are taken in float32 and the normalized features are
@@ -89,6 +96,73 @@ def vgg16_features(params: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor) -
     return feats
 
 
+# ---------------------------------------------------------------------------
+# AlexNet and SqueezeNet1.1 (the reference's other LPIPS nets)
+# ---------------------------------------------------------------------------
+
+ALEX_CHANNELS = (64, 192, 384, 256, 256)
+SQUEEZE_CHANNELS = (64, 128, 256, 384, 384, 512, 512)
+# torchvision alexnet .features convs: (cout, k, stride, pad)
+_ALEX_CONVS = ((64, 11, 4, 2), (192, 5, 1, 2), (384, 3, 1, 1), (256, 3, 1, 1), (256, 3, 1, 1))
+# squeezenet1_1 fire modules (squeeze, expand1x1, expand3x3), at .features 3, 4, 6, 7, 9, 10, 11, 12
+_SQUEEZE_FIRES = ((16, 64, 64), (16, 64, 64), (32, 128, 128), (32, 128, 128),
+                  (48, 192, 192), (48, 192, 192), (64, 256, 256), (64, 256, 256))
+_SQUEEZE_FIRE_INDICES = (3, 4, 6, 7, 9, 10, 11, 12)
+_ALEX_CONV_INDICES = (0, 3, 6, 8, 10)
+
+
+def _conv2d(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """NCHW conv with HWIO weights cast to x's dtype, then the bias in the
+    output's dtype (the reference's ``_conv2d``)."""
+    y = F.conv2d(x, p["weight"].to(x.dtype).permute(3, 2, 0, 1), stride=stride, padding=pad)
+    return y + p["bias"].to(y.dtype)[:, None, None]
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def alexnet_features(params: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor) -> List[torch.Tensor]:
+    """Scaled [B, H, W, 3] -> AlexNet .features relu1..relu5 (NHWC); 3x3 / 2
+    max pools before convs 1 and 2."""
+    x, feats = x.permute(0, 3, 1, 2), []
+    for i, (_, _, stride, pad) in enumerate(_ALEX_CONVS):
+        if i in (1, 2):
+            x = F.max_pool2d(x, 3, 2)
+        x = torch.relu(_conv2d(x, params[i], stride, pad))
+        feats.append(_nhwc(x))
+    return feats
+
+
+def _fire(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+    """SqueezeNet Fire: 1x1 squeeze, ReLU, (1x1 expand || 3x3 expand), ReLU, channel concat."""
+    s = torch.relu(_conv2d(x, p["squeeze"]))
+    return torch.cat([torch.relu(_conv2d(s, p["expand1x1"])), torch.relu(_conv2d(s, p["expand3x3"], pad=1))], dim=1)
+
+
+def _pool_ceil(x: torch.Tensor) -> torch.Tensor:
+    """3x3 / 2 max pool in ceil mode: a partial last window (the reference pads
+    the high side with -inf)."""
+    return F.max_pool2d(x, 3, 2, ceil_mode=True)
+
+
+def squeezenet_features(params: Dict[str, Any], x: torch.Tensor) -> List[torch.Tensor]:
+    """Scaled [B, H, W, 3] -> SqueezeNet1.1 .features relu1..relu7 (NHWC)."""
+    fires = params["fires"]
+    x = torch.relu(_conv2d(x.permute(0, 3, 1, 2), params["conv0"], stride=2))
+    feats = [x]
+    x = _fire(_fire(_pool_ceil(x), fires[0]), fires[1])
+    feats.append(x)
+    x = _fire(_fire(_pool_ceil(x), fires[2]), fires[3])
+    feats.append(x)
+    x = _fire(_pool_ceil(x), fires[4])
+    feats.append(x)
+    for fire in fires[5:]:
+        x = _fire(x, fire)
+        feats.append(x)
+    return [_nhwc(f) for f in feats]
+
+
 def normalize_feat(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     """Unit norm over channels, the norm accumulated in float32; in f's dtype."""
     f32 = f.float()
@@ -97,14 +171,22 @@ def normalize_feat(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 
 def extract_raw_features(params: Dict[str, Any], img: torch.Tensor) -> List[torch.Tensor]:
-    """[-1, 1] NHWC image -> un-normalized backbone feature maps: the VGG16
-    slice outputs, or with a ``"disc"`` backbone (``losses/disc_percept.py``)
-    the trained discriminator's maps, which take [-1, 1] with no scaling layer."""
+    """[-1, 1] NHWC image -> un-normalized backbone feature maps, NHWC.  The
+    backbone follows the params' structure: ``"disc"`` the trained
+    discriminator (``losses/disc_percept.py``; [-1, 1] in, no scaling layer),
+    ``"vgg"`` the VGG16 slices, else ``"net"``: SqueezeNet1.1 where it holds
+    ``"fires"``, AlexNet otherwise."""
     if "disc" in params:
         from .disc_percept import disc_features
 
         return disc_features(params["disc"], img)
-    return vgg16_features(params["vgg"], scaling_layer(img))
+    x = scaling_layer(img)
+    if "vgg" in params:
+        return vgg16_features(params["vgg"], x)
+    net = params["net"]
+    if isinstance(net, dict) and "fires" in net:
+        return squeezenet_features(net, x)
+    return alexnet_features(net, x)
 
 
 def backbone_in(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
@@ -180,25 +262,65 @@ def distance_from_raw_features(params, raw_feats, target_norm_feats, eps: float 
     return total
 
 
+def _he_conv(generator: Optional[torch.Generator], k: int, cin: int, cout: int) -> Dict[str, torch.Tensor]:
+    w = torch.randn((k, k, cin, cout), generator=generator) * math.sqrt(2.0 / (cin * k * k))
+    return {"weight": w, "bias": torch.zeros((cout,))}
+
+
 def init_lpips_params(generator: Optional[torch.Generator], device) -> Dict[str, Any]:
     """Random-backbone LPIPS (He-init convs, uniform lin heads): the
     degraded-but-valid mode when no pretrained VGG16 weights are on disk."""
     vgg, cin = [], 3
-    for item in VGG16_PLAN:
-        if item == "M":
-            continue
-        cout = int(item)
-        w = torch.randn((3, 3, cin, cout), generator=generator) * math.sqrt(2.0 / (cin * 9))
-        vgg.append({"weight": w, "bias": torch.zeros((cout,))})
+    for cout in (int(item) for item in VGG16_PLAN if item != "M"):
+        vgg.append(_he_conv(generator, 3, cin, cout))
         cin = cout
     lin = [torch.ones((c,)) / c for c in LPIPS_CHANNELS]
     return tree_to({"vgg": vgg, "lin": lin}, device)
 
 
+def init_alex_params(generator: Optional[torch.Generator], device) -> List[Dict[str, torch.Tensor]]:
+    """Random He-init AlexNet backbone (the degraded mode, as init_lpips_params)."""
+    convs, cin = [], 3
+    for cout, k, _, _ in _ALEX_CONVS:
+        convs.append(_he_conv(generator, k, cin, cout))
+        cin = cout
+    return tree_to(convs, device)
+
+
+def init_squeeze_params(generator: Optional[torch.Generator], device) -> Dict[str, Any]:
+    """Random He-init SqueezeNet1.1 backbone (the degraded mode)."""
+    conv0, fires, cin = _he_conv(generator, 3, 3, 64), [], 64
+    for s, e1, e3 in _SQUEEZE_FIRES:
+        fires.append({"squeeze": _he_conv(generator, 1, cin, s), "expand1x1": _he_conv(generator, 1, s, e1),
+                      "expand3x3": _he_conv(generator, 3, s, e3)})
+        cin = e1 + e3
+    return tree_to({"conv0": conv0, "fires": fires}, device)
+
+
+def _hwio(sd: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """torchvision conv ``<prefix>.weight`` [O, I, kh, kw] / ``.bias`` -> HWIO."""
+    return {"weight": np.transpose(np.asarray(sd[f"{prefix}.weight"], np.float32), (2, 3, 1, 0)),
+            "bias": np.asarray(sd[f"{prefix}.bias"], np.float32)}
+
+
+def alexnet_params_from_torch_state_dict(sd: Dict[str, Any]) -> List[Dict[str, np.ndarray]]:
+    """torchvision alexnet ``features.{0,3,6,8,10}`` convs -> HWIO list."""
+    return [_hwio(sd, f"features.{i}") for i in _ALEX_CONV_INDICES]
+
+
+def squeezenet_params_from_torch_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """torchvision squeezenet1_1 ``features.*`` -> {"conv0", "fires"} (HWIO)."""
+    return {"conv0": _hwio(sd, "features.0"),
+            "fires": [{name: _hwio(sd, f"features.{i}.{name}") for name in ("squeeze", "expand1x1", "expand3x3")}
+                      for i in _SQUEEZE_FIRE_INDICES]}
+
+
 def params_from_jax(tree: Any, device="cpu") -> Dict[str, Any]:
-    """The JAX package's VGG LPIPS params ({'vgg': convs HWIO, 'lin': heads}),
-    same layout, -> tensors on ``device``."""
-    return tree_to({"vgg": tree["vgg"], "lin": tree["lin"]}, device)
+    """The JAX package's LPIPS params, same layout (HWIO convs), -> tensors on
+    ``device``: ``{"vgg", "lin"}``, or ``{"net", "lin"}`` for AlexNet (a
+    tuple of convs) and SqueezeNet ({"conv0", "fires"})."""
+    name = "vgg" if "vgg" in tree else "net"
+    return tree_to({name: tree[name], "lin": tree["lin"]}, device)
 
 
 def vgg16_params_from_torch_state_dict(sd: Dict[str, Any]) -> List[Dict[str, np.ndarray]]:
@@ -230,15 +352,65 @@ def _load_state_dict(path: str) -> Dict[str, np.ndarray]:
 
 
 def build_lpips_params(generator: Optional[torch.Generator] = None, device="cuda",
-                       vgg_path: Optional[str] = None, lin_path: Optional[str] = None):
-    """Random LPIPS, with the torchvision VGG16 backbone and/or the LPIPS
-    lin heads (``vgg.pth``) loaded from disk where given.  On the card unless
-    the caller asks for ``"cpu"`` (``utils.device.resolve_device``)."""
+                       vgg_path: Optional[str] = None, lin_path: Optional[str] = None, net: str = "vgg"):
+    """Random LPIPS on backbone ``net`` ("vgg" | "alex" | "squeeze"), with the
+    torchvision backbone (``vgg_path``, whichever net is selected) and/or the
+    LPIPS lin heads (``{vgg,alex,squeeze}.pth``) loaded from local files where
+    given.  On the card unless the caller asks for ``"cpu"``
+    (``utils.device.resolve_device``)."""
     device = resolve_device(device)
-    params = init_lpips_params(generator, device)
-    if vgg_path is not None:
-        params["vgg"] = tree_to(vgg16_params_from_torch_state_dict(_load_state_dict(vgg_path)), device)
+    if net in ("vgg", "vgg16"):
+        params, chans = init_lpips_params(generator, device), LPIPS_CHANNELS
+        if vgg_path is not None:
+            params["vgg"] = tree_to(vgg16_params_from_torch_state_dict(_load_state_dict(vgg_path)), device)
+    elif net in ("alex", "squeeze"):
+        init, convert, chans = {"alex": (init_alex_params, alexnet_params_from_torch_state_dict, ALEX_CHANNELS),
+                                "squeeze": (init_squeeze_params, squeezenet_params_from_torch_state_dict,
+                                            SQUEEZE_CHANNELS)}[net]
+        params = {"net": init(generator, device), "lin": tree_to([np.ones(c) / c for c in chans], device)}
+        if vgg_path is not None:
+            params["net"] = tree_to(convert(_load_state_dict(vgg_path)), device)
+    else:
+        raise ValueError(f"unknown LPIPS net {net!r} (vgg | alex | squeeze)")
     if lin_path is not None:
-        params["lin"] = tree_to(lin_weights_from_torch_state_dict(_load_state_dict(lin_path)), device)
+        params["lin"] = tree_to(lin_weights_from_torch_state_dict(_load_state_dict(lin_path), len(chans)), device)
     return params
 
+
+# ---------------------------------------------------------------------------
+# The reference's other distance modes ("L2", "net", "SSIM")
+# ---------------------------------------------------------------------------
+
+
+def mse_per_sample(img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+    """"L2" mode: the per-sample mean squared difference [B]."""
+    return torch.mean((img0 - img1) ** 2, dim=(1, 2, 3))
+
+
+def lpips_net_mode(params: Dict[str, Any], img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+    """"net" mode: squared differences of the normalized features summed over
+    channels, averaged over space, summed over layers; no lin heads [B]."""
+    total = None
+    for a, b in zip(extract_features(params, img0), extract_features(params, img1)):
+        d = torch.mean(torch.sum((a.float() - b.float()) ** 2, dim=-1), dim=(-2, -1))
+        total = d if total is None else total + d
+    return total
+
+
+def dssim_per_sample(img0: torch.Tensor, img1: torch.Tensor, data_range: float = 2.0,
+                     win: int = 7) -> torch.Tensor:
+    """(1 - SSIM) / 2 on [-1, 1] NHWC images [B]: uniform ``win`` x ``win``
+    window, VALID, constants from ``data_range``."""
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    c = img0.shape[-1]
+    k = torch.full((c, 1, win, win), 1.0 / (win * win), dtype=img0.dtype, device=img0.device)
+
+    def avg(v):
+        return F.conv2d(v.permute(0, 3, 1, 2), k, groups=c)
+
+    mu0, mu1 = avg(img0), avg(img1)
+    s00 = avg(img0 * img0) - mu0 * mu0
+    s11 = avg(img1 * img1) - mu1 * mu1
+    s01 = avg(img0 * img1) - mu0 * mu1
+    ssim_map = ((2 * mu0 * mu1 + c1) * (2 * s01 + c2)) / ((mu0 ** 2 + mu1 ** 2 + c1) * (s00 + s11 + c2))
+    return (1.0 - torch.mean(ssim_map, dim=(1, 2, 3))) / 2.0

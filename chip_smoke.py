@@ -134,9 +134,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                3000 steps at batch 16, PCA over 10000 samples), one process a
                run: a robustness point with the first training, the five
                perceptual backbones on Jpeg (the two calibrated ones fit their
-               2AFC heads), an identification point, the perceptual run again
-               (all cached, no launch), then ``cli.report`` of the three;
+               2AFC heads), an identification point, ``capacity`` on the
+               cached recipe (nothing trained: its FID sweep over 8 samples,
+               500 steps x 8 restarts in bf16, FID from random Inception and
+               the discriminator's Frechet distance, then the full-budget
+               sweep; 4 records with finite visibility and a full-budget
+               accuracy, the bf16 FIR kernels in the solves, float32
+               ``conv3x3_relu`` / ``vgg_slice1_fwd`` in the visibility LPIPS;
+               its process seconds, the host seconds of its Frechet distances,
+               Inception images/s, peak memory), the perceptual run again (all
+               cached, no launch), then ``cli.report`` of the four;
                ``--samples 2 --steps 40 --n 4`` (the study's 20 / 2000 / 20).
+17. evaluate -- ``cli.evaluate --random_init --with_fid`` at full width
+               (256px, style_dim 512, n_mlp 8, channel_max 512; key_len 64,
+               sigma 1, 2 samples, 20 steps x 4 restarts, perceptual,
+               float32): every float32 kernel launched, finite FID and
+               visibility, ``mean_latent_cos``; the host seconds of its
+               Frechet distance.  Then Inception alone at 299 px (batch 16:
+               CUDA-event median, images/s; batch 2 and ``preprocess`` at
+               256 -> 299 and 512 -> 299 against the CPU, 1e-4), the AlexNet
+               and SqueezeNet backbones, ``lpips_net_mode``, ``dssim_per_sample``
+               and ``mse_per_sample`` at (2, 256, 256, 3) against the CPU
+               (within 1e-4 of the CPU side's largest magnitude), the
+               train-mode attacks at every fixed draw against the CPU (1e-5),
+               and ``cli.attribute --lpips_net squeeze`` (2 x 4 chains, 10
+               steps): the FIR kernels launched and no LPIPS kernel.
 
 bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
 2.  the launch-only rows of phase 2 again in bf16 at batch 2 and 16 (``_bf16``
@@ -185,7 +207,8 @@ Then it prints the card's name and power limit, one JSON line describing
 each kernel (its launches on every path above: ``launches`` is phase 5's for
 a float32 kernel and the bf16 ``cli.attribute`` run's for a ``_bf16`` one,
 ``launches_training`` phase 14's timed steps, ``launches_studies`` phase 16's
-three study runs; the bf16 skip chain's times are
+three study runs, ``launches_capacity`` its capacity run, ``launches_evaluate``
+phase 17's ``cli.evaluate``; the bf16 skip chain's times are
 its one launch, its per-level shapes under ``per_level_``), and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero at once.
@@ -1837,8 +1860,10 @@ def phase_train_tiny(torch, port, gpu):
 # Phase 16 runs ``cli.study`` in processes of its own; this runner wraps it so that the
 # process reports its launch counts: by kernel over the whole run, and those made inside
 # the windows where float32 launches belong (the target renders ``pipeline.synthesize``,
-# the 2AFC calibration, the generator's training) and inside the discriminator's
-# feature pass, with the shapes of every bf16 ``blur4`` launch.
+# the 2AFC calibration, the generator's training, ``capacity``'s visibility LPIPS) and
+# inside the discriminator's feature pass, with the shapes of every bf16 ``blur4``
+# launch; and the host seconds and calls of the Frechet distances and of Inception's
+# features (with their image count).
 STUDY_RUNNER = r"""
 import json, sys, time
 root, counts_path, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
@@ -1852,9 +1877,14 @@ pl = importlib.import_module(PORT + ".fingerprint.pipeline")
 cal = importlib.import_module(PORT + ".losses.calibrate")
 dp = importlib.import_module(PORT + ".losses.disc_percept")
 est = importlib.import_module(PORT + ".eval.study")
+fid = importlib.import_module(PORT + ".eval.fid")
+lp = importlib.import_module(PORT + ".losses.lpips")
 cli = importlib.import_module(PORT + ".cli.study")
-windows = {w: {n: 0 for n in cuda_mod.KERNELS} for w in ("renders", "calibration", "training", "disc_features")}
+windows = {w: {n: 0 for n in cuda_mod.KERNELS}
+           for w in ("renders", "calibration", "training", "disc_features", "visibility", "frechet", "inception")}
 seconds = {w: 0.0 for w in windows}
+calls = {w: 0 for w in windows}
+images = {"inception": 0}
 
 def counted(window, fn):
     def wrapped(*args, **kwargs):
@@ -1863,15 +1893,25 @@ def counted(window, fn):
             return fn(*args, **kwargs)
         finally:
             seconds[window] += time.time() - t0
+            calls[window] += 1
             for name, n in cuda_mod.launch_counts().items():
                 windows[window][name] += n - before[name]
     return wrapped
+
+compute_features = fid.compute_features
+
+def inception_counted(params, imgs, batch=16):
+    images["inception"] += imgs.shape[0]
+    return compute_features(params, imgs, batch)  # a host array: the card has finished
 
 pl.synthesize = counted("renders", pl.synthesize)
 cal.calibrate_lin_heads = counted("calibration", cal.calibrate_lin_heads)
 cal.rank_accuracy = counted("calibration", cal.rank_accuracy)
 est.ensure_trained = counted("training", est.ensure_trained)
 dp.disc_features = counted("disc_features", dp.disc_features)
+lp.lpips = counted("visibility", lp.lpips)
+fid.frechet_distance = counted("frechet", fid.frechet_distance)
+fid.compute_features = counted("inception", inception_counted)
 shapes = set()
 launch = up.blur4_launch
 
@@ -1887,6 +1927,7 @@ if cuda:
     torch.cuda.synchronize()
 with open(counts_path, "w") as f:
     json.dump({"launches": cuda_mod.launch_counts(), "windows": windows, "window_seconds": seconds,
+               "window_calls": calls, "inception_images": images["inception"],
                "blur4_bf16_shapes": sorted(shapes), "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0},
               f)
 sys.exit(rc)
@@ -1951,15 +1992,14 @@ def point_lines(stdout: str) -> dict:
     return out
 
 
-def check_study_launches(counts, path: str, need_bf16) -> None:
-    """A study run's launches: float32 kernels only inside its renders,
-    calibration and training (which launch no bf16 kernel); the bf16 kernels in
-    ``need_bf16`` launched."""
+def check_study_launches(counts, path: str, need_bf16, float32_windows=("renders", "calibration", "training")) -> None:
+    """A study run's launches: float32 kernels only inside ``float32_windows``
+    (its renders, calibration and training by default; these launch no bf16
+    kernel); the bf16 kernels in ``need_bf16`` launched."""
     w = counts["windows"]
-    inside = {n: w["renders"][n] + w["calibration"][n] + w["training"][n] for n in counts["launches"]}
+    inside = {n: sum(w[k][n] for k in float32_windows) for n in counts["launches"]}
     check(of_dtype(counts["launches"]) == of_dtype(inside) and not any(of_dtype(inside, "bfloat16").values()),
-          f"{path}: float32 launches {of_dtype(counts['launches'])} outside renders, calibration and training "
-          f"{inside}")
+          f"{path}: float32 launches {of_dtype(counts['launches'])} outside {float32_windows}: {inside}")
     for name in need_bf16:
         check(counts["launches"][name] > 0, f"kernel {name} was not launched by {path}")
 
@@ -2040,21 +2080,179 @@ def phase_studies(torch, port, gpu, device="cuda", budget=STUDY_BUDGET):
     line["identification"] = {"process_seconds": seconds, "p_bit": recs["ident_64px_kl32_s6_None"]["measured_p_bit"],
                               "wall_s": recs["ident_64px_kl32_s6_None"]["wall_s"], "peak_bytes": counts["peak_bytes"]}
 
+    # capacity on the cached recipe: the FID sweep (500 steps x 8 restarts, bf16) and the full-budget one
+    seconds, out, counts = study_run(work, ["capacity", *base], 900)
+    check(counts["windows"]["training"] == {n: 0 for n in counts["launches"]}, "capacity: trained again")
+    with open(os.path.join(work, "result", "study_capacity_torch.json")) as f:
+        recs = json.load(f)
+    check([(r["key_len"], r["sigma"]) for r in recs] == [(32, 3.0), (32, 6.0), (64, 3.0), (64, 6.0)],
+          f"capacity: points {[(r['key_len'], r['sigma']) for r in recs]}")
+    finite = lambda v: isinstance(v, float) and abs(v) < float("inf")  # noqa: E731  (NaN fails too)
+    for r in recs:
+        check(all(finite(r[k]) for k in ("fid", "fid_disc", "watermark_lpips", "watermark_mse")),
+              f"capacity: visibility {r}")
+        full = f"{budget[budget.index('--steps') + 1]}/{budget[budget.index('--n') + 1]}"
+        check(r["mean_bit_acc_full"] is not None and r["full_budget"] == full, f"capacity: full budget {r}")
+    # the solves in bf16; the visibility LPIPS and the discriminator's features in float32
+    check_study_launches(counts, "study capacity", [n + BF16 for n in ("blur4", "upblur4", "upblur4_adj")],
+                         ("renders", "visibility", "disc_features"))
+    vis = counts["windows"]["visibility"]
+    check(vis["conv3x3_relu"] > 0 and vis["vgg_slice1_fwd"] > 0, f"capacity: visibility LPIPS launched {vis}")
+    check(counts["windows"]["disc_features"]["blur4"] > 0, "capacity: disc features without blur4")
+    runs_capacity = counts
+    line["capacity"] = {
+        "process_seconds": seconds, "peak_bytes": counts["peak_bytes"], "samples": recs[0]["samples"],
+        "sweep_seconds": [float(v) for v in re.findall(r"capacity sweep \([0-9/]+(?:, FID)?\) in ([0-9.]+)s", out)],
+        "frechet_seconds": counts["window_seconds"]["frechet"], "frechet_calls": counts["window_calls"]["frechet"],
+        "inception_seconds": counts["window_seconds"]["inception"], "inception_images": counts["inception_images"],
+        "inception_images_per_s": counts["inception_images"] / counts["window_seconds"]["inception"],
+        "records": [{k: r[k] for k in ("key_len", "sigma", "fid", "fid_disc", "watermark_lpips", "watermark_mse",
+                                       "mean_bit_acc", "mean_bit_acc_full", "mean_latent_cos")} for r in recs]}
+
     seconds, out, counts = study_run(work, perceptual, 300)
     check(all(f"[study] {t}: cached" in out for t in tags), "resume: not every point was cached")
     check("ready in" not in out and not any(counts["launches"].values()),
           f"resume: trained or launched {counts['launches']}")
     line["resume"] = {"process_seconds": seconds, "launches": sum(counts["launches"].values())}
 
-    seconds, out, _ = study_run(work, ["robustness", "perceptual", "identification"], 120, module="report")
+    seconds, out, _ = study_run(work, ["robustness", "perceptual", "identification", "capacity"], 120,
+                                module="report")
     for head in ("## study_robustness (1 points)", "## study_perceptual (5 points)",
-                 "## study_identification (1 points)"):
+                 "## study_identification (1 points)", "## study_capacity (4 points)"):
         check(head in out, f"report: no '{head}'")
     line["report_seconds"] = seconds
     line["gpu"] = gpu
     emit(line)
     shutil.rmtree(work, ignore_errors=True)
-    return {n: sum(c["launches"][n] for c in runs.values()) for n in port["_cuda"].KERNELS}
+    return ({n: sum(c["launches"][n] for c in runs.values()) for n in port["_cuda"].KERNELS},
+            runs_capacity["launches"])
+
+
+EVALUATE = ["--device", "cuda", "--random_init", "--img_size", "256", "--style_dim", "512", "--n_mlp", "8",
+            "--channel_max", "512", "--key_lens", "64", "--sigmas", "1.0", "--samples", "2", "--steps", "20",
+            "--n", "4", "--with_fid", "--loss", "perceptual"]
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want|, on the CPU in float32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def phase_evaluate(torch, port, gpu, device="cuda", argv=EVALUATE, squeeze_argv=FULL):
+    """Phase 17: ``cli.evaluate --with_fid`` at full width (float32,
+    perceptual): every float32 kernel launched, finite FID and visibility, the
+    content latent's cosine; the host seconds of its Frechet distance.  Then
+    Inception alone at 299 px (batch 16: CUDA-event median, images/s; batch 2
+    and ``preprocess`` against the CPU), the AlexNet and SqueezeNet backbones
+    and the three distance modes at (2, 256, 256, 3) against the CPU (1e-4 of
+    the CPU side's largest magnitude: cuDNN's float32 sums in another order),
+    the train-mode attacks at each fixed draw against the CPU (1e-5), and one
+    ``cli.attribute --lpips_net squeeze`` run (2 x 4 chains, 10 steps): the
+    FIR kernels launched, no LPIPS kernel."""
+    cuda_mod, fid, inc, lp, atk = port["_cuda"], port["fid"], port["inception"], port["lpips"], port["attacks"]
+    out = os.path.join(OUT, "evaluate.json")
+    frechet, host = fid.frechet_distance, {"seconds": 0.0, "calls": 0}
+
+    def timed_frechet(*args, **kwargs):
+        t = time.time()
+        try:
+            return frechet(*args, **kwargs)
+        finally:
+            host["seconds"] += time.time() - t
+            host["calls"] += 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_mod.reset_launches()
+    fid.frechet_distance = timed_frechet
+    t0 = time.time()
+    try:
+        rc = port["cli_evaluate"].main(argv + ["--out", out])
+    finally:
+        fid.frechet_distance = frechet
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = cuda_mod.launch_counts()
+    check(rc == 0, f"cli.evaluate returned {rc}")
+    with open(out) as f:
+        recs = json.load(f)
+    check(len(recs) == 1, f"cli.evaluate: records {recs}")
+    rec = recs[0]
+    for k in ("fid", "watermark_lpips", "watermark_mse", "mean_latent_cos", "mean_bit_acc"):
+        check(isinstance(rec[k], float) and abs(rec[k]) < float("inf"), f"cli.evaluate: {k} = {rec[k]}")
+    check(host["calls"] == 1, f"cli.evaluate: {host['calls']} Frechet distances")
+    check_all_launched(counts, "cli.evaluate")
+    line = {"phase": "evaluate", "img_size": 256, "style_dim": 512, "n_mlp": 8, "channel_max": 512, "key_len": 64,
+            "sigma": 1.0, "samples": 2, "steps": 20, "restarts": 4, "loss": "perceptual", "dtype": "float32",
+            "process_seconds": seconds, "frechet_seconds": host["seconds"], "record": rec,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "launches": counts}
+
+    # Inception alone: batch 16 timed; batch 2 and the resize against the CPU
+    g = torch.Generator().manual_seed(11)
+    params = inc.init_inception_params(g, device)
+    params_cpu = port["tree"].tree_map(lambda t: t.cpu(), params)
+    x16 = (torch.rand((16, 299, 299, 3), generator=g) * 2 - 1).to(device)
+    with torch.no_grad():
+        ms = median_ms(torch, lambda: inc.inception_features(params, x16), reps=10)
+        line["inception_batch16_ms"] = ms
+        line["inception_images_per_s"] = 16 / ms * 1000.0
+        line["inception_err"] = rel_err(torch, inc.inception_features(params, x16[:2]),
+                                        inc.inception_features(params_cpu, x16[:2].cpu()))
+        check(line["inception_err"] <= TOL, f"inception card vs CPU {line['inception_err']:.3e}")
+        for size in (256, 512):  # an upscale, and a downscale (antialiased)
+            img = torch.rand((2, size, size, 3), generator=g) * 2 - 1
+            err = float((inc.preprocess(img.to(device)).cpu() - inc.preprocess(img)).abs().max())
+            line[f"preprocess_{size}_max_abs_err"] = err
+            # the antialiased downscale sums up to ~5 taps a pass in another order on the card
+            check(err <= TOL, f"preprocess {size} -> 299 card vs CPU {err:.3e}")
+
+        # the other LPIPS backbones and the distance modes
+        yy, xx = torch.meshgrid(torch.linspace(-1, 1, 256), torch.linspace(-1, 1, 256), indexing="ij")
+        base = torch.stack([torch.sin(3 * xx + p) * torch.cos(2 * yy - p) for p in (0.0, 1.0, 2.0)], -1)
+        a = torch.clamp(0.8 * base[None] + 0.25 * torch.randn((2, 256, 256, 3), generator=g), -1.0, 1.0)
+        b = torch.clamp(a + 0.2 * torch.randn(a.shape, generator=g), -1.0, 1.0)
+        for net in ("alex", "squeeze"):
+            p_card = lp.build_lpips_params(torch.Generator().manual_seed(0), device, net=net)
+            p_cpu = lp.build_lpips_params(torch.Generator().manual_seed(0), "cpu", net=net)
+            feats = getattr(lp, {"alex": "alexnet_features", "squeeze": "squeezenet_features"}[net])
+            errs = [rel_err(torch, fc, fh) for fc, fh in zip(feats(p_card["net"], lp.scaling_layer(a.to(device))),
+                                                           feats(p_cpu["net"], lp.scaling_layer(a)))]
+            line[f"{net}_features_err"] = max(errs)
+            line[f"{net}_net_mode_err"] = rel_err(torch, lp.lpips_net_mode(p_card, a.to(device), b.to(device)),
+                                                  lp.lpips_net_mode(p_cpu, a, b))
+            check(max(errs) <= TOL and line[f"{net}_net_mode_err"] <= TOL,
+                  f"{net}: card vs CPU {max(errs):.3e}, net mode {line[f'{net}_net_mode_err']:.3e}")
+        for mode in ("dssim_per_sample", "mse_per_sample"):
+            fn = getattr(lp, mode)
+            line[f"{mode}_err"] = rel_err(torch, fn(a.to(device), b.to(device)), fn(a, b))
+            check(line[f"{mode}_err"] <= TOL, f"{mode}: card vs CPU {line[mode + '_err']:.3e}")
+
+        # the train-mode attacks at every fixed draw
+        errs = {}
+        for choice in (0, 1, 2):
+            errs[f"blur_random_{choice}"] = float((atk.gaussian_blur_random(a.to(device), choice=choice).cpu()
+                                                   - atk.gaussian_blur_random(a, choice=choice)).abs().max())
+        ch = int(256 * 0.9)
+        for off in ((0, 0), (256 - ch, 256 - ch), (3, 17)):
+            errs[f"random_crop_{off[0]}_{off[1]}"] = float((atk.random_crop(a.to(device), offset=off).cpu()
+                                                           - atk.random_crop(a, offset=off)).abs().max())
+        line["train_attack_max_abs_err"] = errs
+        check(max(errs.values()) <= 1e-5, f"train-mode attacks card vs CPU {errs}")
+
+    # the solver on a SqueezeNet LPIPS: the generator's FIR kernels, no VGG kernel
+    cuda_mod.reset_launches()
+    r = port["cli_attribute"].run(squeeze_argv + ["--loss", "perceptual", "--lpips_net", "squeeze", "--sample_size",
+                                                  "2", "--n", "4", "--steps", "10",
+                                                  "--save_dir", os.path.join(OUT, "squeeze")])
+    sq = cuda_mod.launch_counts()
+    check(all(sq[n] > 0 for n in ("blur4", "upblur4", "upblur4_adj")), f"squeeze solve: FIR launches {sq}")
+    check(all(sq[n] == 0 for n in ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd")), f"squeeze solve: {sq}")
+    check(all(v == v and abs(v) < float("inf") for v in r.losses), f"squeeze solve: losses {r.losses}")
+    line["squeeze_attribute"] = {"solve_seconds": r.solve_seconds, "losses": r.losses, "launches": sq}
+    line["gpu"] = gpu
+    emit(line)
+    return counts
 
 
 def import_port() -> dict:
@@ -2073,7 +2271,8 @@ def import_port() -> dict:
         ("cli_generate", "cli.generate"), ("cli_attribute", "cli.attribute"), ("cli_serve", "cli.serve"),
         ("cli_model_attribute", "cli.model_attribute"), ("model_attribution", "fingerprint.model_attribution"),
         ("biggan", "models.biggan"), ("lpips", "losses.lpips"), ("gan", "training.gan"),
-        ("cli_train", "cli.train"))}
+        ("cli_train", "cli.train"), ("fid", "eval.fid"), ("inception", "eval.inception"),
+        ("cli_evaluate", "cli.evaluate"), ("tree", "utils.tree"))}
 
 
 def main() -> int:
@@ -2144,8 +2343,11 @@ def main() -> int:
     phase_train_tiny(torch, port, gpu)
     emit({"phase": "train_tiny_done", "seconds": time.time() - t0})
     t0 = time.time()
-    study_counts = phase_studies(torch, port, gpu)
+    study_counts, capacity_counts = phase_studies(torch, port, gpu)
     emit({"phase": "studies_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    evaluate_counts = phase_evaluate(torch, port, gpu)
+    emit({"phase": "evaluate_done", "seconds": time.time() - t0, "total_seconds": time.time() - t_start})
 
     # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
     through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
@@ -2182,6 +2384,8 @@ def main() -> int:
             "launches_training": training_counts[name],
             "launches_bf16_studies": studies_counts[name],
             "launches_studies": study_counts[name],
+            "launches_capacity": capacity_counts[name],
+            "launches_evaluate": evaluate_counts[name],
             "max_abs_err": err, **times, "batch": 16,
             "launches_per_step": per_step[name],
             # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`) and blur4 at

@@ -10,6 +10,9 @@ slope); Jpeg with hard rounding: a coefficient within ~1e-5 of a half-integer
 rounds the other way and moves its 8x8 block by a whole quantisation step, so
 that test counts pixels (at least 99.9% within 2e-4) instead of taking a max.
 Gradients of sum(attack(img)) through each solver attack: 1e-4 of their scale.
+The train-mode attacks (``gaussian_blur_random``, ``random_crop``,
+``make_attack(..., is_train=True)``) are fed the index or offset that JAX's
+key drew, at every value the draw can take, within 1e-5.
 """
 
 import jax
@@ -151,6 +154,89 @@ def test_solver_attack_and_its_gradient_match_jax(name):
     np.testing.assert_allclose(tg.numpy(), jg, atol=1e-4 * max(1.0, np.abs(jg).max()))
     if name == "Noise":
         assert torch.equal(ty, xt)
+
+
+# one compile a configuration: op by op JAX compiles each primitive alone
+_jblur_random = jax.jit(jatk.gaussian_blur_random, static_argnames=("sigmas", "sizes"))
+_jrandom_crop = jax.jit(jatk.random_crop, static_argnames=("ratio",))
+
+
+def _jax_key_drawing(fn, want):
+    """The first PRNGKey(i) whose draw ``fn(key)`` equals ``want``."""
+    for i in range(200):
+        key = jax.random.PRNGKey(i)
+        if fn(key) == want:
+            return key
+    raise AssertionError(f"no key draws {want}")
+
+
+@pytest.mark.parametrize("choice", [0, 1, 2])
+def test_random_blur_matches_jax_at_each_draw(choice):
+    """Each filter size the train-mode blur can draw (3, 5, 9 with one sigma;
+    a second sigma list follows the index, clamped), given JAX's draw."""
+    x = _images(24, 24, seed=8)
+    for sigmas, sizes in (((1.5,), (3, 5, 9)), ((0.5, 1.0), (3, 5, 25))):
+        key = _jax_key_drawing(lambda k: int(jax.random.randint(k, (), 0, len(sizes))), choice)
+        want = np.asarray(_jblur_random(jnp.asarray(x), key, sigmas=sigmas, sizes=sizes))
+        got = atk.gaussian_blur_random(torch.from_numpy(x), sigmas=sigmas, sizes=sizes, choice=choice).numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL)
+        # the masked kernel is the small kernel: the eval-mode blur at the chosen size
+        if choice < len(sizes) - 1:
+            small = atk.gaussian_blur(torch.from_numpy(x), sigmas[min(choice, len(sigmas) - 1)], sizes[choice])
+            np.testing.assert_allclose(got, small.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("h,w,ratio", [(32, 32, 0.75), (33, 40, 0.9)])
+def test_random_crop_matches_jax_at_each_draw(h, w, ratio):
+    """Offsets at both corners and inside, given JAX's draws (y0, x0)."""
+    x = _images(h, w, seed=9)
+    ch, cw = max(1, int(h * ratio)), max(1, int(w * ratio))
+
+    def offset(key):
+        ky, kx = jax.random.split(key)
+        return int(jax.random.randint(ky, (), 0, h - ch + 1)), int(jax.random.randint(kx, (), 0, w - cw + 1))
+
+    seen = set()
+    for i in range(12):
+        key = jax.random.PRNGKey(100 + i)
+        y0x0 = offset(key)
+        seen.add(y0x0)
+        want = np.asarray(_jrandom_crop(jnp.asarray(x), key, ratio=ratio))
+        got = atk.random_crop(torch.from_numpy(x), ratio=ratio, offset=y0x0).numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    for corner in ((0, 0), (h - ch, w - cw)):
+        got = atk.random_crop(torch.from_numpy(x), ratio=ratio, offset=corner).numpy()
+        want = np.asarray(jax.image.resize(jnp.asarray(x[:, corner[0]:corner[0] + ch, corner[1]:corner[1] + cw]),
+                                           x.shape, "bilinear"))
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    assert len(seen) > 1
+
+
+def test_train_mode_attacks_draw_from_their_generator():
+    """make_attack(is_train=True): Blur and Crop draw their strength from the
+    generator (one seed, one result), Jpeg rounds differentiably as JAX's train
+    mode does, Combination applies members with probability 0.5."""
+    x = torch.from_numpy(_images(32, 32, seed=10))
+    for name in ("Blur", "Crop"):
+        fn = atk.make_attack(AttackConfig(augmentation=name), is_train=True)
+        a, b = fn(x, torch.Generator().manual_seed(1)), fn(x, torch.Generator().manual_seed(1))
+        assert torch.equal(a, b) and a.shape == x.shape
+        outs = {fn(x, torch.Generator().manual_seed(s)).sum().item() for s in range(8)}
+        assert len(outs) > 1  # the draw matters
+    g = torch.Generator().manual_seed(3)
+    choice = int(torch.randint(0, 3, (), generator=g))
+    want = atk.gaussian_blur_random(x, sigmas=(0.5,), sizes=(3, 5, 25), choice=choice)
+    torch.testing.assert_close(atk.make_attack(AttackConfig(augmentation="Blur"), is_train=True)(
+        x, torch.Generator().manual_seed(3)), want)
+    jcfg, cfg = _cfgs("Jpeg")
+    want = np.asarray(jatk.make_attack(jcfg, is_train=True)(jnp.asarray(x.numpy()), None))
+    got = atk.make_attack(cfg, is_train=True)(x).numpy()
+    np.testing.assert_allclose(got, want, atol=JPEG_ATOL)
+    comb = atk.make_attack(AttackConfig(augmentation="Combination"), is_train=True)
+    applied = [torch.rand(3, generator=torch.Generator().manual_seed(s)) > 0.5 for s in range(6)]
+    for s, mask in enumerate(applied):
+        got = comb(x, torch.Generator().manual_seed(s))
+        assert torch.equal(got, x) == (not bool(mask.any()))
 
 
 def test_pipeline_augment_applies_the_configured_attack():

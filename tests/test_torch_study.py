@@ -2,10 +2,12 @@
 
 - ``cli.study``: with the training, the pipeline and the measurement stubbed
   out in both packages (as ``tests/test_study_driver.py`` does), every one of
-  the twelve runnable subcommands builds the same sequence of points (tag,
-  model recipe, measurement kwargs; backbone factories compared by whether
-  they ran), writes the same table, resumes from the same jsonl and filters by
-  ``--only`` as JAX's does; ``capacity`` is refused, naming FID.
+  the thirteen subcommands builds the same sequence of points (tag, model
+  recipe, measurement kwargs; backbone factories compared by whether they
+  ran; ``capacity``'s two sweeps by their arguments), writes the same table,
+  resumes from the same jsonl and filters by ``--only`` as JAX's does;
+  ``capacity`` merges its full-budget sweep into the FID sweep's records and
+  ``cli.report capacity`` renders them.
 - ``eval.study``: ``eval_point``'s record has the JAX record's keys and the
   same spectrum fields on one PCA; one converging solve recovers every
   planted key; the attacked, attack-aware, pruned, chunked, polished and
@@ -41,6 +43,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.eval 
     model_attribution_study as jmas,
 )
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.eval import study as jstudy
+from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.eval import sweep as jsweep
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.fingerprint import attribute as jattr
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.fingerprint import embed as jembed
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu.fingerprint import pca as jpca
@@ -56,6 +59,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch
     model_attribution_study as mas,
 )
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.eval import study
+from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.eval import sweep
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.fingerprint import attribute as attr
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.fingerprint import embed
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.fingerprint import pca
@@ -65,7 +69,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.losses import lpips as lp
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.utils.lhs import fold_in
 
-RUNNABLE = [c for c in cli.COMMANDS if c != "capacity"]
+RUNNABLE = list(cli.COMMANDS)
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +91,8 @@ class _Args:
 def _stub(monkeypatch, mods):
     """Stub one package's training, pipeline, measurements and backbones
     (``mods`` = its study, identification, model-attribution, calibrate,
-    disc_percept and lpips modules); return the list the calls land in."""
-    est, eid, ema, ecal, edp, elp = mods
+    disc_percept, lpips and sweep modules); return the list the calls land in."""
+    est, eid, ema, ecal, edp, elp, esw = mods
     calls = []
 
     def ensure_trained(img_size, channel_max, train_steps, cache_dir, **kw):
@@ -114,7 +118,24 @@ def _stub(monkeypatch, mods):
         return {"decision_acc": 1.0, "decision_acc_ci95": [0.8, 1.0], "false_reject_at_threshold": 0.0,
                 "false_accept_at_threshold": 0.0, "open_set_auc": 1.0}
 
+    def run_sweep(seed, mcfg, *, acfg, key_lens, sigmas, samples, with_fid, **kw):
+        """Records a sweep (the seed: JAX's PRNGKey(seed) or the port's int) and
+        returns a point a (key_len, sigma): other accuracies at the full budget."""
+        seed = seed if isinstance(seed, int) else int(np.asarray(seed).ravel()[-1])
+        kw.pop("device", None)
+        kw["disc_params"] = kw.get("disc_params") is not None
+        calls.append(("run_sweep", (seed, mcfg.img_size, mcfg.channel_max, mcfg.ckpt),
+                      dict(kw, acfg=(acfg.steps, acfg.n_starts, acfg.loss), key_lens=key_lens, sigmas=sigmas,
+                           samples=samples, with_fid=with_fid)))
+        acc = 0.5 if with_fid else 0.75
+        return [esw.SweepPoint(key_len=kl, sigma=sig, shift=512 - kl, mean_bit_acc=acc + kl / 1000,
+                               attribution_acc=acc / 2, watermark_lpips=0.01 * sig, watermark_mse=0.001 * sig,
+                               mean_latent_cos=0.9, fid=(3.5 * sig if with_fid else None),
+                               fid_disc=(0.25 * kl if kw["disc_params"] else None))
+                for kl in key_lens for sig in sigmas]
+
     for mod, name, fn in ((est, "ensure_trained", ensure_trained), (est, "build_study_pipeline", build_pipeline),
+                          (esw, "run_sweep", run_sweep),
                           (est, "eval_point", eval_point), (est, "bit_sigma_correlation", lambda rec: 0.0),
                           (eid, "identification_point", identification_point),
                           (ema, "model_attribution_point", model_attribution_point),
@@ -127,9 +148,14 @@ def _stub(monkeypatch, mods):
 
 
 @pytest.fixture
-def stubbed(monkeypatch):
-    return (_stub(monkeypatch, (jstudy, jident, jmas, jcal, jdp, jlp)),
-            _stub(monkeypatch, (study, ident, mas, cal, dp, lp)))
+def stubbed(monkeypatch, tmp_path):
+    """Both packages stubbed, in a working directory that holds the stubbed
+    recipe's (empty) discriminator export, which JAX's ``capacity`` reads."""
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("ckpts")
+    np.savez("ckpts/sg2_64px_cm128_s3000_d0_seed0_disc1.npz.disc.npz")
+    return (_stub(monkeypatch, (jstudy, jident, jmas, jcal, jdp, jlp, jsweep)),
+            _stub(monkeypatch, (study, ident, mas, cal, dp, lp, sweep)))
 
 
 def _run_both(stubbed, tmp_path, cmd, **kw):
@@ -153,20 +179,49 @@ def test_each_subcommand_builds_jaxs_points(stubbed, tmp_path, cmd):
     ``_auto_chunk``: identical to JAX's."""
     jcalls, calls, jtable, table = _run_both(stubbed, tmp_path, cmd, chunk_samples=0, n=20)
     assert calls and calls == jcalls
-    assert table == jtable and len({r["tag"] for r in table}) == len(table)
+    assert table == jtable
+    # every point is tagged but capacity's grid, whose records (as JAX's) carry none
+    assert len({r.get("tag", (r.get("key_len"), r.get("sigma"))) for r in table}) == len(table)
     if cmd == "perceptual":  # every backbone but mse built its params
         assert [c[2]["lpips_params"] for c in calls] == [name != "mse" for name in
                                                          ("mse", "disc", "vgg_rand", "disc_cal", "vgg_cal")
                                                          for _ in range(4)]
 
 
-def test_capacity_is_refused_naming_fid(capsys):
+def test_capacity_merges_the_full_budget_sweep_and_renders(stubbed, tmp_path):
+    """The FID sweep (500 steps x 8 restarts, bf16, with the discriminator) and
+    the full-budget sweep (--steps / --n) over one grid and seed; the second's
+    accuracies merged into the first's records; the default table
+    ``result/study_capacity_torch.json``; ``cli.report capacity`` renders it."""
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.cli import report
+
+    _, calls = stubbed
+    assert cli.main(["capacity", "--device", "cpu", "--cache_dir", "ckpts", "--steps", "60", "--n", "6",
+                     "--samples", "4", "--seed", "5"]) == 0
+    ckpt = "ckpts/sg2_64px_cm128_s3000_d0_seed0_disc1.npz"
+    grid = dict(key_lens=(32, 64), sigmas=(3.0, 6.0), samples=8, ckpt_path=ckpt, dtype="bfloat16")
+    assert calls == [("run_sweep", (5, 64, 128, ckpt), dict(grid, acfg=(500, 8, "mse"), with_fid=True,
+                                                            disc_params=True)),
+                     ("run_sweep", (5, 64, 128, ckpt), dict(grid, acfg=(60, 6, "mse"), with_fid=False,
+                                                            disc_params=False))]
+    recs = json.load(open("result/study_capacity_torch.json"))
+    assert [(r["key_len"], r["sigma"]) for r in recs] == [(32, 3.0), (32, 6.0), (64, 3.0), (64, 6.0)]
+    for r in recs:
+        assert r["mean_bit_acc"] == 0.5 + r["key_len"] / 1000
+        assert r["mean_bit_acc_full"] == 0.75 + r["key_len"] / 1000 and r["attribution_acc_full"] == 0.375
+        assert r["full_budget"] == "60/6" and r["samples"] == 8
+        assert r["fid"] == 3.5 * r["sigma"] and r["fid_disc"] == 0.25 * r["key_len"]
     assert "capacity" in cli.COMMANDS and len(cli.COMMANDS) == 13
-    assert cli.main(["capacity", "--device", "cpu"]) != 0
-    err = capsys.readouterr().err
-    assert "FID" in err and "eval.sweep" in err
     for cmd in cli.COMMANDS:  # the parser takes all thirteen names
         assert cli._parser().parse_args([cmd]).cmd == cmd
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert report.main(["capacity"]) == 0
+    text = buf.getvalue()
+    assert "## study_capacity (4 points)" in text and "bit acc (60/6 budget)" in text
 
 
 def test_only_resume_and_torn_lines_as_in_jax(stubbed, tmp_path):
