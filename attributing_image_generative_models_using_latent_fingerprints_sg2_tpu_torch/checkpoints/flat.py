@@ -40,7 +40,7 @@ def flatten_params(params: Any) -> Dict[str, np.ndarray]:
     return out
 
 
-def unflatten_params(flat: Dict[str, np.ndarray], device="cpu") -> Any:
+def unflatten_params(flat: Dict[str, np.ndarray], device) -> Any:
     """Inverse of :func:`flatten_params`, leaves as float32 tensors on ``device``."""
     nested: Dict[str, Any] = {}
     for key, value in flat.items():

@@ -64,7 +64,7 @@ def _to_rgb(sd, prefix: str) -> Dict[str, Any]:
 
 
 def generator_params_from_state_dict(sd: Mapping[str, np.ndarray], cfg: ModelConfig,
-                                     device="cpu") -> Dict[str, Any]:
+                                     device) -> Dict[str, Any]:
     """Rosinality ``g_ema`` state dict -> the port's generator tree."""
     n_blocks = int(math.log2(cfg.img_size)) - 2
     style = []
@@ -124,7 +124,7 @@ def load_generator(path: str, cfg: ModelConfig, device="cuda") -> Dict[str, Any]
     return generator_params_from_state_dict(load_torch_state_dict(path), cfg, device)
 
 
-def params_from_jax(tree: Any, device="cpu", cfg: ModelConfig = None) -> Dict[str, Any]:
+def params_from_jax(tree: Any, device, cfg: ModelConfig = None) -> Dict[str, Any]:
     """The JAX package's generator pytree (numpy or JAX leaves) -> the port's
     tree.  Both use the same layout, so this converts leaves only; with
     ``cfg`` the shapes are checked too."""
@@ -176,6 +176,6 @@ def generator_state_dict_from_params(params: Mapping[str, Any]) -> Dict[str, np.
     return {k: np.ascontiguousarray(v) for k, v in sd.items()}
 
 
-def discriminator_params_from_jax(tree: Any, device="cpu") -> Dict[str, Any]:
+def discriminator_params_from_jax(tree: Any, device) -> Dict[str, Any]:
     """The JAX package's discriminator pytree -> the port's (same layout)."""
     return tree_to(tree, device)

@@ -19,11 +19,20 @@ Run:
 ``--dtype bfloat16`` runs synthesis and LPIPS in bfloat16 (the bf16 kernels)
 with the optimizer state and the loss in float32; a resumed run takes the
 dtype saved in its run directory.
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+<this module> ...``) each sample chunk is solved with its samples sharded
+over the ranks (``--mesh_data``, ``parallel/solver.py``); rank 0 writes the
+run's files.  ``--profile`` prints the phase report at the end and writes a
+``torch.profiler`` Chrome trace of the first solve chunk to
+``<run_dir>/trace/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import sys
 import time
 from typing import List
@@ -36,11 +45,15 @@ from ..config import Config
 from ..fingerprint import attribute as attr
 from ..fingerprint import encoder as enc_mod
 from ..fingerprint import pipeline as pl
+from ..parallel import multihost
+from ..parallel.mesh import replicate
+from ..parallel.solver import attribute_on_mesh
+from ..utils import profiling as prof
 from ..utils.device import resolve_device
 from ..utils.image import make_image, store_results
 from ..utils.io import make_run_dir, save_config, write_results
 from ..utils.lhs import fold_in
-from .common import build_parser, config_from_args, resolve_lpips
+from .common import build_parser, config_from_args, engage_mesh, resolve_lpips
 
 
 @dataclasses.dataclass
@@ -52,7 +65,7 @@ class AttributeRun:
     solve_seconds: float
     steps: int
     chains: int  # samples x restarts started together in one sample chunk
-    chain_steps: int  # chain-steps this process executed (pruning counted)
+    chain_steps: int  # chain-steps this run solved (pruning counted; on a mesh, all ranks together)
 
 
 def _sync(device: torch.device) -> None:
@@ -82,6 +95,9 @@ def run(argv=None) -> AttributeRun:
                         help="resume an interrupted run from its run dir (its saved config, seed "
                         "and init scheme are used; of the flags only --device, --chunk_* and the "
                         "LPIPS weight paths are honored)")
+    parser.add_argument("--profile", action="store_true",
+                        help="print the per-phase wall-clock report at the end, and write a torch.profiler "
+                        "Chrome trace of the first solve chunk to <run_dir>/trace/")
     args = parser.parse_args(argv)
 
     prior_arrays = {}
@@ -99,7 +115,8 @@ def run(argv=None) -> AttributeRun:
             # from (config, seed), so solving the tail under other flags would mix two
             # runs in one result.txt.  Where the run executes is not part of what it computes.
             cfg = Config.from_dict(state.config)
-            cfg = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, device=args.device))
+            cfg = dataclasses.replace(cfg, run=dataclasses.replace(
+                cfg.run, device=args.device, mesh_data=args.mesh_data, mesh_model=args.mesh_model))
             print(f"[attribute] resuming at sample {state.next_sample} from {run_dir} with its "
                   f"saved config (seed {cfg.run.seed}); other CLI flags are ignored")
         else:
@@ -112,14 +129,18 @@ def run(argv=None) -> AttributeRun:
                       "(no saved config; using CLI flags)")
     else:
         cfg = config_from_args(args)
-        run_dir = save_config(
+        run_dir = None
+        state = AttributionRunState(seed=cfg.run.seed, config=cfg.to_dict())
+    mesh, device = engage_mesh(cfg.run.mesh_data, cfg.run.mesh_model, resolve_device(cfg.run.device), "attribute")
+    writer = multihost.process_index() == 0  # rank 0 writes the run's files
+    if run_dir is None:
+        run_dir = multihost.broadcast_one_to_all(save_config(
             make_run_dir(cfg.run.save_dir, cfg.attack.augmentation, cfg.fingerprint.sigma,
                          cfg.fingerprint.shift),
             cfg,
-        )
-        state = AttributionRunState(seed=cfg.run.seed, config=cfg.to_dict())
-    save_init_scheme(run_dir, scheme)
-    device = resolve_device(cfg.run.device)
+        ) if writer else None)
+    if writer:
+        save_init_scheme(run_dir, scheme)
     print(f"[attribute] run dir: {run_dir}")
 
     # one stream per purpose, each a function of the seed alone
@@ -130,31 +151,36 @@ def run(argv=None) -> AttributeRun:
     t0 = time.time()
     want_lpips, lpips_params = resolve_lpips(args, cfg)
     attacked = cfg.attack.augmentation != "None"
-    pipe = pl.build_pipeline(cfg.model, cfg.fingerprint, generator=g_build, device=device,
-                             attack_cfg=cfg.attack if attacked else None,
-                             ckpt_path=cfg.model.ckpt, lpips_params=lpips_params,
-                             want_lpips=want_lpips)
-    _sync(device)
+    with prof.phase("build_pipeline"):
+        pipe = pl.build_pipeline(cfg.model, cfg.fingerprint, generator=g_build, device=device,
+                                 attack_cfg=cfg.attack if attacked else None,
+                                 ckpt_path=cfg.model.ckpt, lpips_params=lpips_params,
+                                 want_lpips=want_lpips)
+        _sync(device)
     print(f"[attribute] pipeline built in {time.time() - t0:.1f}s")
 
     s_total = cfg.run.sample_size
     t0 = time.time()
-    imgs, w0, _, true_bits, _ = pl.generate_fingerprinted(pipe, s_total, g_gen)
-    targets = pl.augment(pipe, torch.clamp(imgs, -1.0, 1.0), g_atk)
-    _sync(device)
+    with prof.device_phase("generate_targets") as box:
+        imgs, w0, _, true_bits, _ = pl.generate_fingerprinted(pipe, s_total, g_gen)
+        targets = pl.augment(pipe, torch.clamp(imgs, -1.0, 1.0), g_atk)
+        box.append(targets)
     print(f"[attribute] {s_total} targets generated in {time.time() - t0:.1f}s")
 
     acfg = cfg.attribution
     alpha_init_all = key_init_all = None
     if scheme["init"] == "encoder":
         t0 = time.time()
-        enc_params, enc_curve, ecfg = enc_mod.train_for_init(
-            pipe.gen_params, pipe.basis, pipe.noise, mcfg=cfg.model, seed=state.seed,
-            steps=scheme["encoder_steps"], jitter=scheme["encoder_jitter"], batch=scheme["encoder_batch"],
-            attack_cfg=cfg.attack if attacked else None)
-        alpha_init_all, key_init_all = enc_mod.encoder_solve_init(
-            enc_params, pipe.basis, targets, acfg.n_starts, fold_in(state.seed, 8), jitter=ecfg.jitter)
-        enc_acc = float(enc_mod.encoder_bit_accuracy(enc_params, targets, true_bits).mean())
+        with prof.phase("train_encoder"):
+            enc_params, enc_curve, ecfg = enc_mod.train_for_init(
+                pipe.gen_params, pipe.basis, pipe.noise, mcfg=cfg.model, seed=state.seed,
+                steps=scheme["encoder_steps"], jitter=scheme["encoder_jitter"], batch=scheme["encoder_batch"],
+                attack_cfg=cfg.attack if attacked else None)
+            alpha_init_all, key_init_all = enc_mod.encoder_solve_init(
+                enc_params, pipe.basis, targets, acfg.n_starts, fold_in(state.seed, 8), jitter=ecfg.jitter)
+            if mesh is not None:  # each rank trained its own encoder: all solve from rank 0's starts
+                alpha_init_all, key_init_all = replicate(mesh, [alpha_init_all.clone(), key_init_all.clone()])
+            enc_acc = float(enc_mod.encoder_bit_accuracy(enc_params, targets, true_bits).mean())
         final = f"{float(enc_curve[-1]):.4f}" if len(enc_curve) else "n/a"
         print(f"[attribute] encoder trained in {time.time() - t0:.1f}s ({ecfg.steps} steps, batch {ecfg.batch}, "
               f"final loss {final}); zero-step decode bit acc {enc_acc:.4f}")
@@ -177,30 +203,45 @@ def run(argv=None) -> AttributeRun:
     dt = 0.0  # the solves alone: PNGs and the state are written between them
     for c0 in range(first_chunk, s_total, chunk):
         c1 = min(c0 + chunk, s_total)
-        _sync(device)
-        t0 = time.time()
-        # the chunk that starts at sample c0 draws the same restarts in every run of this
-        # config and seed, whichever chunks ran before it in this process
-        res = attr.attribute_chunked(
-            pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, targets[c0:c1],
-            mcfg=cfg.model, acfg=acfg, generator=fold_in(opt_seed, c0),
-            chunk_starts=args.chunk_starts, dtype=cfg.run.dtype,
-            attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
-            alpha_init=None if alpha_init_all is None else alpha_init_all[c0:c1],
-            key_init=None if key_init_all is None else key_init_all[c0:c1], **pl.solver_kwargs(pipe))
-        _sync(device)
-        dt += time.time() - t0
+        solve_fn = None
+        if mesh is not None and (c1 - c0) % mesh.shape["data"] == 0:
+            def solve_fn(tgt, generator, **kw):
+                # each rank solves its rows of the chunk (and of every restart chunk)
+                return attribute_on_mesh(mesh, pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, tgt,
+                                         mcfg=cfg.model, acfg=acfg, generator=generator,
+                                         shard_model=cfg.run.mesh_model > 1, **kw)
+
+        # the trace stands outside the device phase, so that the phase's fence ends the traced work
+        trace_ctx = (prof.trace(os.path.join(run_dir, "trace"), device) if args.profile and c0 == first_chunk
+                     else contextlib.nullcontext())
+        with trace_ctx:
+            _sync(device)
+            t0 = time.time()
+            with prof.device_phase("solve_chunk") as box:
+                # the chunk that starts at sample c0 draws the same restarts in every run of this
+                # config and seed, whichever chunks ran before it in this process
+                res = attr.attribute_chunked(
+                    pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, targets[c0:c1],
+                    mcfg=cfg.model, acfg=acfg, generator=fold_in(opt_seed, c0),
+                    chunk_starts=args.chunk_starts, solve_fn=solve_fn, dtype=cfg.run.dtype,
+                    attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
+                    alpha_init=None if alpha_init_all is None else alpha_init_all[c0:c1],
+                    key_init=None if key_init_all is None else key_init_all[c0:c1], **pl.solver_kwargs(pipe))
+                box.append(res.loss)
+            dt += time.time() - t0  # the solve alone: the trace starts before and is written after
         ev = attr.evaluate_attribution(res, true_bits[c0:c1])
         for i, (a, loss) in enumerate(zip(ev["bit_acc"].cpu().tolist(), res.loss.cpu().tolist())):
             bit_accs.append(float(a))
             losses.append(float(loss))
             success += a >= 1.0
             print(f"sample: {c0 + i}, bit acc: {a:.4f}, loss: {loss:.6f}")
-        store_results(run_dir, c0, make_image(pl.synthesize(pipe, w0[c0:c1])), make_image(imgs[c0:c1]))
-        write_results(run_dir, bit_accs, success / len(bit_accs))
         state.next_sample, state.bit_accs, state.success = c1, bit_accs, int(success)
         rec_bits.append(res.key_bits.cpu().numpy())
         losses_all.append(res.losses_all.cpu().numpy())
+        if not writer:
+            continue
+        store_results(run_dir, c0, make_image(pl.synthesize(pipe, w0[c0:c1])), make_image(imgs[c0:c1]))
+        write_results(run_dir, bit_accs, success / len(bit_accs))
         rb = np.concatenate(rec_bits, axis=0)
         # rows of recovered_bits / losses_all align with true_bits[first_sample:]
         # (first_sample > 0 only when a resume could not recover the prior chunks' arrays)
@@ -225,6 +266,9 @@ def run(argv=None) -> AttributeRun:
     else:
         print(f"[attribute] {dt:.2f}s solve on {device}: {solved * acfg.steps / dt:.3f} sample-steps/s, "
               f"{chain_steps / dt:.2f} chain-steps/s ({chains} chains a chunk)")
+    if args.profile:
+        print("[attribute] phase report:")
+        print(prof.format_report(reset=True))
     return AttributeRun(run_dir=run_dir, bit_accs=bit_accs, losses=losses,
                         attribution_acc=attribution_acc, solve_seconds=dt, steps=acfg.steps,
                         chains=chains, chain_steps=chain_steps)

@@ -85,6 +85,12 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype of synthesis and LPIPS in the solve: float32 | bfloat16 (mixed "
                    "precision: the optimizer state and the loss stay float32)")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="data-parallel ranks (0 = every rank of the torchrun job; 1 = no mesh): each rank "
+                   "solves or renders its rows, rank 0 writes the run's files")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-parallel ranks: the styled convs' output channels shard over this many "
+                   "ranks (tensor parallelism; data x model must fit the torchrun job)")
     return p
 
 
@@ -125,8 +131,30 @@ def config_from_args(args: argparse.Namespace) -> Config:
             blur_filter_size=args.blur_filter_size, crop_ratio=args.crop_ratio,
         ),
         run=RunConfig(sample_size=args.sample_size, batch_size=args.batch_size,
-                      save_dir=args.save_dir, seed=args.seed, device=args.device, dtype=args.dtype),
+                      save_dir=args.save_dir, seed=args.seed, device=args.device, dtype=args.dtype,
+                      mesh_data=args.mesh_data, mesh_model=args.mesh_model),
     )
+
+
+def engage_mesh(mesh_data: int, mesh_model: int, device, tag: str):
+    """The CLIs' mesh rule, the reference package's: ``(mesh or None, device)``.
+
+    A process started by torchrun (``WORLD_SIZE`` > 1) joins its process
+    group (``parallel.multihost.initialize``) and runs on its rank's device.
+    A mesh is built when ``mesh_data`` > 1, or when it is 0 and the world
+    has more than one rank; a world of one with ``mesh_data`` 0 has none
+    (and ``mesh_data`` > 1 there raises, as the reference's ``make_mesh`` does)."""
+    from ..parallel import mesh as pm
+    from ..parallel import multihost
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        device = multihost.initialize(device=device)
+    if not (mesh_data > 1 or (mesh_data == 0 and world > 1)):
+        return None, device
+    mesh = pm.make_mesh(data=mesh_data, model=max(1, mesh_model))
+    print(f"[{tag}] mesh: {mesh.shape} over {world} ranks ({mesh.backend})", flush=True)
+    return mesh, device
 
 
 def custom_lpips(args: argparse.Namespace, device):

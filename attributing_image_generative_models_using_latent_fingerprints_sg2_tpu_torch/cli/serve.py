@@ -13,6 +13,12 @@ Run:
     curl -s localhost:8787/healthz
     curl -s -X POST localhost:8787/v1/generate -d '{"seed": 7}'
     curl -s localhost:8787/v1/stats
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+<this module> ...``) each device batch is sharded over the ranks
+(``--mesh_data``, ``--mesh_model``): rank 0 serves HTTP and runs the queue,
+the other ranks follow its batches.  Buckets that do not tile the "data"
+axis are dropped with a note; with none left, rank 0 serves on one device.
 """
 
 from __future__ import annotations
@@ -20,21 +26,25 @@ from __future__ import annotations
 import sys
 import time
 from http.server import ThreadingHTTPServer
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..fingerprint import encoder as enc_mod
 from ..fingerprint import pipeline as pl
 from ..fingerprint.keys import KeyRegistry
+from ..parallel import multihost
 from ..serving import InferenceEngine, ServeConfig, make_server
 from ..utils.device import resolve_device
-from .common import build_parser, config_from_args, resolve_lpips
+from .common import build_parser, config_from_args, engage_mesh, resolve_lpips
 
 
-def build_server(argv=None) -> Tuple[InferenceEngine, ThreadingHTTPServer]:
+def build_server(argv=None) -> Tuple[InferenceEngine, Optional[ThreadingHTTPServer]]:
     """Parse the flags, build and warm the engine (worker started), and bind
-    the HTTP server without serving; the caller serves and stops both."""
+    the HTTP server without serving; the caller serves and stops both.  On a
+    mesh rank other than 0 the engine is built, not started, and the server
+    is None: the caller runs ``engine.follow()`` (a rank outside any mesh
+    returns at once)."""
     parser = build_parser("Fingerprint serving over HTTP/JSON (PyTorch)")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8787, help="0 binds a free port")
@@ -55,7 +65,18 @@ def build_server(argv=None) -> Tuple[InferenceEngine, ThreadingHTTPServer]:
                         help="--init encoder: LHS cloud radius around the prediction, in units of sigma_rest")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    device = resolve_device(cfg.run.device)
+    mesh, device = engage_mesh(cfg.run.mesh_data, cfg.run.mesh_model, resolve_device(cfg.run.device), "serve")
+    buckets = tuple(int(b) for b in args.buckets.split(",") if b)
+    if mesh is not None:
+        data = mesh.shape["data"]
+        tiling = tuple(b for b in buckets if b % data == 0)
+        if not tiling:
+            print(f"[serve] no bucket in {buckets} tiles the {data}-way data axis; serving on one device (pass "
+                  "multiples of it in --buckets to engage the mesh)")
+            mesh = None
+        elif tiling != buckets:
+            print(f"[serve] buckets {buckets} -> {tiling} (multiples of the {data}-way data axis)")
+            buckets = tiling
 
     g_build = torch.Generator().manual_seed(cfg.run.seed)
     attacked = cfg.attack.augmentation != "None"
@@ -63,7 +84,6 @@ def build_server(argv=None) -> Tuple[InferenceEngine, ThreadingHTTPServer]:
     pipe = pl.build_pipeline(cfg.model, cfg.fingerprint, generator=g_build, device=device,
                              attack_cfg=cfg.attack if attacked else None, ckpt_path=cfg.model.ckpt,
                              lpips_params=lpips_params, want_lpips=want_lpips)
-    buckets = tuple(int(b) for b in args.buckets.split(",") if b)
     registry = None
     if args.registry:
         registry = KeyRegistry.load(args.registry)
@@ -81,7 +101,10 @@ def build_server(argv=None) -> Tuple[InferenceEngine, ThreadingHTTPServer]:
     engine = InferenceEngine(pipe, acfg=None if args.no_attribute else cfg.attribution,
                              cfg=ServeConfig(buckets=buckets, max_wait_ms=args.max_wait_ms), seed=cfg.run.seed,
                              registry=registry, encoder_params=encoder_params,
-                             encoder_jitter=args.encoder_jitter, attack_cfg=cfg.attack)
+                             encoder_jitter=args.encoder_jitter, attack_cfg=cfg.attack, mesh=mesh,
+                             shard_model=cfg.run.mesh_model > 1)
+    if multihost.process_index() != 0:
+        return engine, None
     print(f"[serve] warming buckets {buckets} on {device} ...", flush=True)
     t0 = time.time()
     engine.start()
@@ -95,6 +118,10 @@ def build_server(argv=None) -> Tuple[InferenceEngine, ThreadingHTTPServer]:
 
 def main(argv=None) -> int:
     engine, server = build_server(argv)
+    if server is None:
+        if engine.mesh is not None:
+            engine.follow()
+        return 0
     host, port = server.server_address[:2]
     print(f"[serve] listening on {host}:{port}", flush=True)
     try:

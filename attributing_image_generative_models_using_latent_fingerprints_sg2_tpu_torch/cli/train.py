@@ -12,6 +12,11 @@ without downloaded weights: train here, then ``cli.attribute --ckpt
 Run (on the card by default; ``--device cpu`` runs the plain versions):
     python -m attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.cli.train \
         --img_size 64 --channel_max 128 --steps 3000 --batch 16 --out result/selftrain.npz
+
+Data-parallel over N ranks: ``python -m torch.distributed.run --nproc_per_node N
+-m <this module> ...`` (``--mesh_data`` 0 takes them all): every rank trains
+on its rows of the global batch, gradients are averaged over the ranks
+(``parallel/train.py``), and rank 0 writes the metrics, snapshots and exports.
 """
 
 from __future__ import annotations
@@ -28,9 +33,12 @@ import torch
 from ..checkpoints.flat import flatten_params
 from ..checkpoints.rosinality import generator_state_dict_from_params
 from ..config import ModelConfig
+from ..parallel import multihost
+from ..parallel.train import batch_rows, place_train_state, shard_reals
 from ..training.gan import TrainConfig, init_train_state, run_steps
 from ..training.snapshot import check_meta, load_snapshot, save_snapshot
 from ..utils.device import resolve_device
+from .common import engage_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,8 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="native decode threads for --data_dir (0 = all cores)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="data-parallel width: training runs on one device; values > 1 are refused "
-                   "(not yet ported)")
+                   help="data-parallel ranks (0 = every rank of the torchrun job; 1 = none): each rank "
+                   "trains on its rows of the global batch, gradients averaged; the global batch's "
+                   "semantics, so --snapshot / --resume compose unchanged")
     p.add_argument("--chunk", type=int, default=100,
                    help="steps between metric rows written, snapshots and log lines")
     p.add_argument("--log_every", type=int, default=1, help="log every N chunks")
@@ -86,9 +95,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh_data > 1:
-        raise SystemExit(f"--mesh_data {args.mesh_data}: data-parallel training is not yet ported")
-    device = resolve_device(args.device)
+    mesh, device = engage_mesh(args.mesh_data, 1, resolve_device(args.device), "train")
+    if mesh is not None and args.batch % mesh.shape["data"]:
+        print(f"[train] batch {args.batch} does not tile the {mesh.shape['data']}-way data axis: every rank "
+              "trains on the whole batch")
+        mesh = None
+    if mesh is not None:
+        batch_rows(mesh, args.batch)  # raises unless each rank can hold whole minibatch-stddev groups
+    writer = multihost.process_index() == 0  # rank 0 writes metrics, snapshots and exports
     mcfg = ModelConfig(model="sg2", img_size=args.img_size, style_dim=args.style_dim, n_mlp=args.n_mlp,
                        channel_max=args.channel_max, channel_multiplier=args.channel_multiplier, ckpt=None)
     tcfg = TrainConfig(batch=args.batch, lr=args.lr, r1=args.r1, d_reg_every=args.d_reg_every,
@@ -114,6 +128,8 @@ def main(argv=None) -> int:
         check_meta(meta, run_meta)
         start = int(meta["step"])
         print(f"[train] resumed from {args.snapshot} at step {start}")
+    if mesh is not None:
+        state = place_train_state(mesh, state)
 
     data_iter = None
     if args.data_dir is not None:
@@ -134,10 +150,13 @@ def main(argv=None) -> int:
         t_chunk = time.time()
         reals = None
         if data_iter is not None:
-            reals = [torch.from_numpy(next(data_iter)) for _ in range(length)]
-        rows = run_steps(state, args.seed, length, mcfg, tcfg, reals)  # ends in a host sync
+            reals = torch.from_numpy(np.stack([next(data_iter) for _ in range(length)]))
+            reals = list(reals if mesh is None else shard_reals(mesh, reals))
+        rows = run_steps(state, args.seed, length, mcfg, tcfg, reals, mesh=mesh)  # ends in a host sync
         chunk_dt = time.time() - t_chunk
         done += length
+        if not writer:
+            continue
         if args.metrics_out:
             with open(args.metrics_out, "a") as f:
                 for j in range(length):
@@ -153,7 +172,7 @@ def main(argv=None) -> int:
     dt = time.time() - t0
     print(f"[train] {done - start} steps in {dt:.1f}s ({(done - start) / max(dt, 1e-9):.1f} steps/s)")
 
-    if args.out:
+    if args.out and writer:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         sd = generator_state_dict_from_params(state.g_ema)
         np.savez(args.out, **sd)

@@ -175,7 +175,7 @@ def init_inception_params(generator: Optional[torch.Generator] = None, device="c
     return tree_to(build(_spec()), resolve_device(device))
 
 
-def params_from_jax(tree: Any, device="cpu") -> Params:
+def params_from_jax(tree: Any, device) -> Params:
     """The reference package's Inception params (same layout) -> tensors on ``device``."""
     return tree_to(tree, device)
 

@@ -353,19 +353,26 @@ def attribute_chunked(
     acfg: AttributionConfig,
     generator: Optional[torch.Generator] = None,
     chunk_starts: int = 0,
+    solve_fn: Optional[Callable] = None,
     **kwargs,
 ) -> AttributionResult:
     """Solve with the restart axis split into chunks of ``chunk_starts`` (0 = all
     at once): bounds peak memory at large n at no algorithmic cost.  Restarts
     are independent, so the per-sample minimum merges across chunks exactly.
     The chunk that starts at restart ``c0`` draws from ``fold_in(generator, c0)``;
-    ``alpha_init`` / ``key_init`` ([S, n, ...]) follow their chunk."""
-    def solve(**kw):
-        return attribute(gen_params, lpips_params, basis, noise, targets, mcfg=mcfg, acfg=acfg, **kw)
+    ``alpha_init`` / ``key_init`` ([S, n, ...]) follow their chunk.
+
+    ``solve_fn(targets, generator, *, n_starts=None, **kwargs)`` replaces the
+    single-device solver --- e.g. a wrapper around
+    ``parallel.solver.attribute_on_mesh`` --- so restart chunking composes
+    with any execution backend."""
+    if solve_fn is None:
+        def solve_fn(tgt, gen, **kw):
+            return attribute(gen_params, lpips_params, basis, noise, tgt, mcfg=mcfg, acfg=acfg, generator=gen, **kw)
 
     n_total = acfg.n_starts
     if chunk_starts <= 0 or chunk_starts >= n_total:
-        return solve(generator=generator, **kwargs)
+        return solve_fn(targets, generator, **kwargs)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     best: Optional[AttributionResult] = None
@@ -375,7 +382,7 @@ def attribute_chunked(
         for name in ("alpha_init", "key_init"):
             if kw_c.get(name) is not None:
                 kw_c[name] = kw_c[name][:, c0:c0 + n_c]
-        res = solve(generator=fold_in(generator, c0), n_starts=n_c, **kw_c)
+        res = solve_fn(targets, fold_in(generator, c0), n_starts=n_c, **kw_c)
         if best is None:
             best = res
             continue

@@ -101,7 +101,7 @@ def init_encoder(img_size: int, d_alpha: int, key_len: int, ecfg: EncoderConfig,
     return tree_unflatten([t.to(device) for t in leaves], spec)
 
 
-def encoder_params_from_jax(params_np: Params, device="cpu") -> Params:
+def encoder_params_from_jax(params_np: Params, device) -> Params:
     """The reference package's encoder parameters (numpy or JAX arrays):
     conv weights HWIO -> OIHW, the dense weights and biases as they are."""
     def t(a, conv=False):

@@ -315,7 +315,7 @@ def squeezenet_params_from_torch_state_dict(sd: Dict[str, Any]) -> Dict[str, Any
                       for i in _SQUEEZE_FIRE_INDICES]}
 
 
-def params_from_jax(tree: Any, device="cpu") -> Dict[str, Any]:
+def params_from_jax(tree: Any, device) -> Dict[str, Any]:
     """The JAX package's LPIPS params, same layout (HWIO convs), -> tensors on
     ``device``: ``{"vgg", "lin"}``, or ``{"net", "lin"}`` for AlexNet (a
     tuple of convs) and SqueezeNet ({"conv0", "fires"})."""

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.upfirdn2d import make_kernel, upfirdn2d, upsample2x_add, upsample2x_chain
+from ..parallel.mesh import gather_channels, sum_grad_over_model
 from ..utils.tree import tree_to
 
 Params = Dict[str, Any]
@@ -96,6 +97,8 @@ def modulated_conv2d(
     kh, kw, cin, cout = weight.shape
     scale = 1.0 / math.sqrt(cin * kh * kw)
     style = equal_linear(w_latent, p["mod"])  # [B, I], float32
+    if "model_shard" in p:  # this rank's output channels: its part of the style's gradient
+        style = sum_grad_over_model(style, p["model_shard"])
     xs = (x * style[:, None, None, :].to(x.dtype)).permute(0, 3, 1, 2)  # NCHW view, channels_last
     w = weight * scale
     wx = w.to(x.dtype)
@@ -118,11 +121,18 @@ def modulated_conv2d(
 
 def styled_conv(x, w_latent, p: Params, noise: Optional[torch.Tensor], *, upsample=False,
                 blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
-    """Modulated conv + noise injection + fused bias/LeakyReLU."""
+    """Modulated conv + noise injection + fused bias/LeakyReLU.  A conv
+    sharded over a mesh's "model" axis (``parallel.mesh.shard_generator_params``)
+    computes this rank's output channels and gathers them."""
+    mesh = p.get("model_shard")
+    noise_weight = p["noise_weight"]
+    if mesh is not None:
+        x, noise_weight = sum_grad_over_model(x, mesh), sum_grad_over_model(noise_weight, mesh)
     y = modulated_conv2d(x, w_latent, p, upsample=upsample, blur_kernel=blur_kernel)
     if noise is not None:
-        y = y + p["noise_weight"].to(y.dtype) * noise.to(y.dtype)
-    return fused_leaky_relu(y, p["act_bias"].to(y.dtype))
+        y = y + noise_weight.to(y.dtype) * noise.to(y.dtype)
+    y = fused_leaky_relu(y, p["act_bias"].to(y.dtype))
+    return y if mesh is None else gather_channels(y, mesh)
 
 
 def to_rgb(x, w_latent, p: Params, skip: Optional[torch.Tensor] = None, *,
@@ -322,6 +332,20 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8) ->
     var = x.reshape(group, -1, h, w, c).var(dim=0, unbiased=False)
     std = torch.sqrt(var + eps).mean(dim=(1, 2, 3), keepdim=True)  # [B / group, 1, 1, 1]
     return torch.cat([x, std.repeat(group, h, w, 1)], dim=-1)
+
+
+def stddev_rows(batch: int, parts: int, index: int, group_size: int = 4) -> torch.Tensor:
+    """The rows of part ``index`` of ``parts`` when a batch is split into parts
+    that hold whole :func:`minibatch_stddev` groups: the part's share of the
+    B / group columns j, rows j + k * (B / group) in the order that the part's
+    own ``minibatch_stddev`` forms the groups the whole batch's forms."""
+    group = min(batch, group_size)
+    cols = batch // group
+    if batch % group or cols % parts:
+        raise ValueError(f"batch {batch}: its {cols} minibatch-stddev groups of {group} do not split over "
+                         f"{parts} ranks")
+    per = cols // parts
+    return torch.tensor([k * cols + index * per + j for k in range(group) for j in range(per)])
 
 
 def discriminator_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

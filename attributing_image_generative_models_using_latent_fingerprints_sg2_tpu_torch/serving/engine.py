@@ -1,7 +1,6 @@
 """Micro-batching inference engine for fingerprinted generation and attribution.
 
-Counterpart of the reference package's ``serving/engine.py`` (one device,
-no mesh):
+Counterpart of the reference package's ``serving/engine.py``:
 
 - **Static-shape buckets.**  Requests are coalesced and padded up to the
   nearest of a few batch sizes, so the card only ever sees those shapes.
@@ -21,6 +20,13 @@ Its restarts are drawn per batch from a counter, so an attribution is
 reproducible given (engine seed, attribute-batch index, batch composition),
 not per request.  With an encoder (``fingerprint/encoder.py``) the restarts
 start around its prediction.
+
+On a ``parallel.mesh`` grid (``mesh=``; every bucket a multiple of the
+"data" axis) the pipeline is placed once and each device batch is sharded
+over "data": rank 0 runs the queue and the worker thread and broadcasts each
+batch's kind, bucket and inputs; every other rank loops in :meth:`follow`,
+runs the same batch function on its rows, and the rows come back by a
+gather.  :meth:`stop` on rank 0 ends the followers' loops.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ from ..fingerprint import attribute as attr_mod
 from ..fingerprint import encoder as enc_mod
 from ..fingerprint.embed import embed
 from ..fingerprint.pipeline import Pipeline, solver_kwargs, synthesize
+from ..parallel.mesh import all_gather_rows, replicate, shard_batch
+from ..parallel.multihost import broadcast_one_to_all
+from ..parallel.solver import place_pipeline, solve_rows
 from ..utils.lhs import fold_in
 
 KINDS = ("generate", "attribute")
@@ -108,9 +117,18 @@ class InferenceEngine:
     def __init__(self, pipe: Pipeline, acfg: Optional[AttributionConfig] = None,
                  cfg: ServeConfig = ServeConfig(), seed: int = 0, registry=None,
                  encoder_params=None, encoder_jitter: float = 0.25,
-                 attack_cfg: Optional[AttackConfig] = None):
+                 attack_cfg: Optional[AttackConfig] = None, mesh=None, shard_model: bool = False):
         if not cfg.buckets or list(cfg.buckets) != sorted(set(cfg.buckets)):
             raise ValueError(f"buckets must be ascending+unique: {cfg.buckets}")
+        self.mesh = mesh
+        if mesh is not None:
+            data = mesh.shape["data"]
+            bad = [b for b in cfg.buckets if b % data]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by mesh data axis {data}")
+            pipe = place_pipeline(mesh, pipe, shard_model=shard_model)
+            replicate(mesh, encoder_params)
+        self._followers_released = False
         self.pipe = pipe
         self.acfg = acfg
         self.cfg = cfg
@@ -167,6 +185,18 @@ class InferenceEngine:
         for q in self._queues.values():  # fail stragglers rather than hang their clients
             while q:
                 q.popleft().future.set_exception(EngineUnavailable("engine stopped"))
+        if self.mesh is not None and not self._followers_released:
+            self._followers_released = True
+            broadcast_one_to_all(None)  # ends the followers' loops
+
+    def follow(self) -> None:
+        """A follower rank's loop (a mesh's ranks but 0): run every batch that
+        rank 0 broadcasts, on this rank's rows, until rank 0 stops."""
+        while True:
+            msg = broadcast_one_to_all(None)
+            if msg is None:
+                return
+            self._run_rows(*msg)
 
     def warmup(self, kinds: Optional[Sequence[str]] = None) -> Dict[str, float]:
         """Run every (kind, bucket) once on dummy inputs, before the worker
@@ -341,31 +371,47 @@ class InferenceEngine:
     def run_bucket(self, kind: str, b: int, rows, warm: bool = False):
         """One device batch of bucket ``b`` over ``rows`` (request payloads), as
         the worker runs it; padded rows repeat the last real row.  Results as
-        host arrays.  Call it only while the worker is stopped or idle."""
+        host arrays.  Call it only while the worker is stopped or idle.  On a
+        mesh the followers run it too (rank 0 broadcasts the batch)."""
         rows = list(rows) + [rows[-1]] * (b - len(rows))
-        p = self.pipe
+        attr_seed = None
+        if kind == "attribute":
+            with self._lock:
+                if not warm:
+                    self._attr_counter += 1
+                attr_seed = self.seed * 7_919 + self._attr_counter
+        if self.mesh is not None:
+            broadcast_one_to_all((kind, rows, warm, attr_seed))
+        return self._run_rows(kind, rows, warm, attr_seed)
+
+    def _run_rows(self, kind: str, rows, warm: bool, attr_seed: Optional[int]):
+        """The batch function: on a mesh each rank computes its rows of the
+        batch and the rows are gathered."""
+        p, mesh = self.pipe, self.mesh
         if kind == "generate":
             seeds = [r["seed"] for r in rows]
             bits = np.stack([r["bits"] if r["bits"] is not None else np.zeros(p.fpcfg.key_len, np.float32)
                              for r in rows])
             has = np.asarray([r["bits"] is not None for r in rows])
-            imgs, wx, out_bits = generate_rows(p, seeds, bits, has)
-            return imgs.cpu().numpy(), wx.cpu().numpy(), out_bits.numpy(), seeds
+            if mesh is None:
+                imgs, wx, out_bits = generate_rows(p, seeds, bits, has)
+                return imgs.cpu().numpy(), wx.cpu().numpy(), out_bits.numpy(), seeds
+            local = [shard_batch(mesh, torch.from_numpy(a)).numpy() for a in (np.asarray(seeds), bits, has)]
+            out = generate_rows(p, local[0].tolist(), local[1], local[2])
+            imgs, wx, out_bits = (all_gather_rows(mesh, x.to(p.device)).cpu().numpy() for x in out)
+            return imgs, wx, out_bits, seeds
         acfg = dataclasses.replace(self.acfg, steps=min(self.acfg.steps, 2)) if warm else self.acfg
         targets = torch.from_numpy(np.stack([r["image"] for r in rows])).to(p.device)
-        with self._lock:
-            if not warm:
-                self._attr_counter += 1
-            g = torch.Generator().manual_seed(self.seed * 7_919 + self._attr_counter)
-        kw = {}
+        g = torch.Generator().manual_seed(attr_seed)
+        kw = dict(mcfg=p.mcfg, acfg=acfg, generator=g,
+                  attack_cfg=self.attack_cfg if acfg.solver_attack != "None" else None, **solver_kwargs(p))
         if self.encoder_params is not None:
-            a0, k0 = enc_mod.encoder_solve_init(self.encoder_params, p.basis, targets, acfg.n_starts, g,
-                                                jitter=self.encoder_jitter)
-            kw = dict(alpha_init=a0, key_init=k0)
-        res = attr_mod.attribute(p.gen_params, p.lpips_params, p.basis, p.noise, targets, mcfg=p.mcfg,
-                                 acfg=acfg, generator=g,
-                                 attack_cfg=self.attack_cfg if acfg.solver_attack != "None" else None,
-                                 **solver_kwargs(p), **kw)
+            kw["alpha_init"], kw["key_init"] = enc_mod.encoder_solve_init(
+                self.encoder_params, p.basis, targets, acfg.n_starts, g, jitter=self.encoder_jitter)
+        if mesh is None:
+            res = attr_mod.attribute(p.gen_params, p.lpips_params, p.basis, p.noise, targets, **kw)
+        else:
+            res = solve_rows(mesh, p.gen_params, p.lpips_params, p.basis, p.noise, shard_batch(mesh, targets), **kw)
         return res.key_bits.cpu().numpy(), res.key_logits.cpu().numpy(), res.loss.cpu().numpy()
 
     def _execute(self, kind: str, batch) -> None:

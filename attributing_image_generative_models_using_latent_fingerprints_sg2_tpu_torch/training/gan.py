@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..models import stylegan2 as sg2
+from ..parallel.mesh import all_reduce_mean_
 from ..utils.device import resolve_device
 from ..utils.tree import tree_leaves, tree_map
 from .data import sample_batch
@@ -121,6 +122,18 @@ def draw_step(seed: int, step: int, mcfg: ModelConfig, tcfg: TrainConfig, device
     return {"real": real, "d": d, "g": draw_phase(g, mcfg, tcfg).to(device)}
 
 
+def shard_draws(draws: Dict[str, Any], rows: torch.Tensor) -> Dict[str, Any]:
+    """The ``rows`` of a step's batch draws (the reals, and z, t and use_mix of
+    both phases); the noise maps are shared by the batch."""
+    def phase(p: PhaseDraws) -> PhaseDraws:
+        idx = rows.to(p.t.device)
+        return PhaseDraws(p.z[:, idx], p.t[idx], p.use_mix[idx], p.noise)
+
+    real = draws["real"]
+    return {"real": None if real is None else real[rows.to(real.device)], "d": phase(draws["d"]),
+            "g": phase(draws["g"])}
+
+
 def mixed_latent(g_params: Params, draws: PhaseDraws, mcfg: ModelConfig) -> torch.Tensor:
     """[B, n_latent, D]: w of z[0] below the crossover t, w of z[1] from t on."""
     nl = mcfg.n_latent
@@ -140,12 +153,17 @@ def _with_grad(tree: Params) -> Params:
     return tree_map(lambda p: p.detach().requires_grad_(True), tree)
 
 
-def _grads(loss: torch.Tensor, tree: Params) -> List[torch.Tensor]:
+def _grads(loss: torch.Tensor, tree: Params, mesh=None) -> List[torch.Tensor]:
     """d loss / d every leaf of ``tree``; zeros for leaves the loss does not
-    read (the generator's stored noise maps), as in the JAX package."""
+    read (the generator's stored noise maps), as in the JAX package.  On a
+    mesh, each rank's loss is the mean over its rows, and the gradients are
+    averaged over "data": the gradient of the global batch's mean."""
     leaves = tree_leaves(tree)
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+    gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+    if mesh is not None:
+        all_reduce_mean_(mesh, gs)
+    return gs
 
 
 @torch.no_grad()
@@ -168,12 +186,17 @@ def adam_update_(params: Params, grads: List[torch.Tensor], opt: Dict[str, Any],
 
 
 def train_step(state: TrainState, draws: Dict[str, Any], mcfg: ModelConfig,
-               tcfg: TrainConfig) -> tuple:
+               tcfg: TrainConfig, mesh=None) -> tuple:
     """One D update then one G update (against the updated D), the EMA, the
     step count; returns (state, {"d_loss", "r1", "g_loss"}).  ``d_loss`` is
     the adversarial term; ``r1`` is 0 except every ``d_reg_every`` steps,
     where it is (r1 / 2) * mean(sum(g^2)) * d_reg_every with g the gradient
-    of sum(D(real)) in the reals (a second derivative for D's update)."""
+    of sum(D(real)) in the reals (a second derivative for D's update).
+
+    On a ``parallel.mesh`` grid, ``draws`` are this rank's rows of the global
+    batch, whole minibatch-stddev groups (``parallel.train.shard_draws``):
+    gradients and metrics are averaged over "data", so every rank takes the
+    global batch's step and its parameters, EMA and Adam states stay equal."""
     real = draws["real"]
     with torch.no_grad():
         fake_d = _synthesize(state.g_params, draws["d"], mcfg)
@@ -191,32 +214,39 @@ def train_step(state: TrainState, draws: Dict[str, Any], mcfg: ModelConfig,
         (g,) = torch.autograd.grad(real_logit.sum(), real, create_graph=True)
         r1 = (tcfg.r1 / 2.0) * g.square().sum(dim=(1, 2, 3)).mean() * tcfg.d_reg_every
         loss = loss + r1
-    adam_update_(state.d_params, _grads(loss, dp), state.d_opt, tcfg)
+    adam_update_(state.d_params, _grads(loss, dp, mesh), state.d_opt, tcfg)
 
     gp = _with_grad(state.g_params)
     fake = _synthesize(gp, draws["g"], mcfg)
     g_loss = F.softplus(-sg2.discriminator_apply(state.d_params, fake, mcfg)).mean()
-    adam_update_(state.g_params, _grads(g_loss, gp), state.g_opt, tcfg)
+    adam_update_(state.g_params, _grads(g_loss, gp, mesh), state.g_opt, tcfg)
 
     with torch.no_grad():
         ema, cur = tree_leaves(state.g_ema), tree_leaves(state.g_params)
         torch._foreach_mul_(ema, tcfg.ema_decay)
         torch._foreach_add_(ema, cur, alpha=1.0 - tcfg.ema_decay)
     state.step += 1
-    return state, {"d_loss": d_adv.detach(), "r1": r1.detach(), "g_loss": g_loss.detach()}
+    metrics = torch.stack([d_adv.detach(), r1.detach(), g_loss.detach()])
+    if mesh is not None:
+        all_reduce_mean_(mesh, [metrics])
+    return state, dict(zip(("d_loss", "r1", "g_loss"), metrics.unbind()))
 
 
 def run_steps(state: TrainState, seed: int, n: int, mcfg: ModelConfig, tcfg: TrainConfig,
-              reals: Optional[List[torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+              reals: Optional[List[torch.Tensor]] = None, mesh=None) -> Dict[str, np.ndarray]:
     """``n`` steps from ``state.step`` with the draws of (seed, step); reals
     from ``reals`` (one batch a step) when given, else synthetic.  Returns
-    the metrics of every step as float64 arrays [n] (one host sync)."""
+    the metrics of every step as float64 arrays [n] (one host sync).  On a
+    mesh every rank draws the global batch and keeps its rows; ``reals`` are
+    this rank's rows already (``parallel.train.shard_reals``)."""
     device = tree_leaves(state.g_params)[0].device
     rows = []
     for j in range(n):
         draws = draw_step(seed, state.step, mcfg, tcfg, device, synthetic_reals=reals is None)
+        if mesh is not None:
+            draws = shard_draws(draws, sg2.stddev_rows(tcfg.batch, mesh.shape["data"], mesh.index("data")))
         if reals is not None:
             draws["real"] = reals[j].to(device)
-        state, m = train_step(state, draws, mcfg, tcfg)
+        state, m = train_step(state, draws, mcfg, tcfg, mesh)
         rows.append(m)
     return {k: torch.stack([r[k] for r in rows]).double().cpu().numpy() for k in ("d_loss", "r1", "g_loss")}

@@ -42,7 +42,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                (2 samples x 4 restarts, 20 steps); every kernel's launch
                count over this run must be > 0.  A second run of 10 steps
                gives the launches per solve step as the difference of the
-               two runs' counts over the difference in steps.
+               two runs' counts over the difference in steps; it runs with
+               ``--profile``: its phase report has the reference's header and
+               one row each of build_pipeline, generate_targets and
+               solve_chunk, and its Chrome trace names ``conv3x3_tc_kernel``
+               and ``blur4_kernel`` (then the trace is deleted).
 6. attacks  -- every attack and every solver attack at (2, 256, 256, 3) on the
                card against the same function on the CPU copy of the input
                (1e-5; Jpeg with differentiable rounding 2e-4; hard-rounded
@@ -77,10 +81,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                with cuDNN held to its deterministic algorithms (with the
                default ones the encoder differs run to run, and so do the
                bits its solve starts from: ``tools/encoder_tiny_spread.py``).
-10. attribute_encoder -- ``cli.attribute --init encoder`` at full width (2 x 4
-               chains, 20 steps, 100 encoder steps, Jpeg, attack-aware): it
-               prints its encoder line, writes ``result.txt``, launches every
-               kernel.
+10. attribute_encoder -- ``cli.attribute --init encoder --profile`` at full
+               width (2 x 4 chains, 20 steps, 100 encoder steps, Jpeg,
+               attack-aware): it prints its encoder line, writes
+               ``result.txt``, launches every kernel; its phase report has the
+               reference's four phases (train_encoder too) and its trace the
+               kernels of phase 5's.
 11. serve   -- ``cli.serve``'s engine at full width (buckets 1 and 4,
                perceptual, 20 steps, 4 restarts, encoder init of 100 steps, a
                16-user registry) behind the HTTP server on port 0: 8 concurrent
@@ -159,6 +165,30 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                train-mode attacks at every fixed draw against the CPU (1e-5),
                and ``cli.attribute --lpips_net squeeze`` (2 x 4 chains, 10
                steps): the FIR kernels launched and no LPIPS kernel.
+18. parallel -- one ``python -m torch.distributed.run --standalone
+               --nproc_per_node 2`` launch of this script's worker mode
+               (``--parallel-worker``): two ranks on the one card over gloo
+               (nccl refuses two ranks on one device), cuDNN deterministic.
+               Each rank runs ``cli.attribute --mesh_data 2`` at full width
+               (256px, perceptual, 2 samples x 4 restarts, float32) for 10
+               steps (every float32 kernel launched by each rank; one run
+               directory, rank 0's) and for 1 step, the tiny configuration's
+               planted keys on 4 samples through ``attribute_on_mesh`` (phase
+               3's criterion: mean bit accuracy above 0.85, at least 3 of 4
+               exact), ``cli.train --mesh_data 2`` (64px, batch 16, 8 steps),
+               full-width generation on a 1 x 2 mesh (the model axis: each rank
+               half of every styled conv's channels) against the unsharded
+               images (``TOL`` of max) with ``blur4`` launched at the halved
+               shapes, and ``cli.serve``'s engine on the data mesh at bucket 2
+               (rank 0 serves one /v1/generate and one /v1/attribute over HTTP,
+               rank 1 follows its batches).  This process runs the same
+               ``cli.attribute`` and ``cli.train`` on one device: equal bit
+               accuracies, the 1-step losses within ``PARALLEL_LOSS_RTOL`` (the
+               10-step ones are printed: free solves part through Adam),
+               training metrics within the reference's mesh-test tolerance;
+               and ``blur4`` at the halved shapes against its plain version,
+               timed beside its bound.  It prints the backend, each rank's
+               device and the phase's seconds.
 
 bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
 2.  the launch-only rows of phase 2 again in bf16 at batch 2 and 16 (``_bf16``
@@ -208,7 +238,8 @@ each kernel (its launches on every path above: ``launches`` is phase 5's for
 a float32 kernel and the bf16 ``cli.attribute`` run's for a ``_bf16`` one,
 ``launches_training`` phase 14's timed steps, ``launches_studies`` phase 16's
 three study runs, ``launches_capacity`` its capacity run, ``launches_evaluate``
-phase 17's ``cli.evaluate``; the bf16 skip chain's times are
+phase 17's ``cli.evaluate``, ``launches_parallel`` each rank's in phase 18's
+``cli.attribute --mesh_data 2``; the bf16 skip chain's times are
 its one launch, its per-level shapes under ``per_level_``), and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the port's package beside it, it exits non-zero at once.
@@ -217,6 +248,7 @@ device, or without the port's package beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -809,6 +841,35 @@ def check_all_launched(counts, path: str, dtype: str = "float32") -> None:
         check(n > 0, f"kernel {name} was not launched by {path}")
 
 
+# the header of the reference package's utils/profiling.py::format_report
+PHASE_REPORT_HEADER = "phase                          count   total     mean"
+# kernels whose names a traced full-width solve must hold (the LPIPS square convs, the synthesis blur)
+TRACED_KERNELS = ("conv3x3_tc_kernel", "blur4_kernel")
+
+
+def check_profile(text: str, run_dir: str, phases) -> dict:
+    """What ``cli.attribute --profile`` printed and wrote: its phase report
+    (the reference's header, one row per phase in ``phases``, each counted
+    once) and one Chrome trace in ``<run_dir>/trace`` that names every kernel
+    of ``TRACED_KERNELS``.  The trace (tens of MB) is deleted once checked."""
+    lines = text.splitlines()
+    check("[attribute] phase report:" in lines, "cli.attribute --profile printed no phase report")
+    rows = lines[lines.index("[attribute] phase report:") + 1:]
+    check(rows[0] == PHASE_REPORT_HEADER, f"phase report header {rows[0]!r}")
+    check(sorted(r.split()[0] for r in rows[1:]) == sorted(phases) and all(r.split()[1] == "1" for r in rows[1:]),
+          f"phase report rows {rows[1:]}, expected one each of {sorted(phases)}")
+    trace_dir = os.path.join(run_dir, "trace")
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"{trace_dir}: {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        body = f.read()
+    mentions = {k: body.count(k) for k in TRACED_KERNELS}
+    check(all(mentions.values()), f"the trace names {mentions}")
+    shutil.rmtree(trace_dir)
+    return {"phase_report": rows, "trace_bytes": len(body), "trace_kernel_mentions": mentions}
+
+
 def phase_attribute(torch, port, gpu):
     cuda_mod = port["_cuda"]
     save = os.path.join(OUT, "attribute")
@@ -823,12 +884,19 @@ def phase_attribute(torch, port, gpu):
     counts = cuda_mod.launch_counts()
     packs = port["tf32"].pack_count - packs
     peak = torch.cuda.max_memory_allocated()
-    # the same run with half the steps: what a solve step launches is the difference
+    # the same run with half the steps: what a solve step launches is the difference; it runs
+    # with --profile (tracing the solve changes no launch count).  The phase report is the
+    # process's: the runs before this one recorded phases too
     cuda_mod.reset_launches()
-    port["cli_attribute"].run(FULL + ["--loss", "perceptual", "--sample_size", str(samples),
-                                      "--n", str(starts), "--steps", str(steps // 2),
-                                      "--save_dir", save + "_half"])
+    port["profiling"].report(reset=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        half_run = port["cli_attribute"].run(FULL + ["--loss", "perceptual", "--sample_size", str(samples),
+                                                     "--n", str(starts), "--steps", str(steps // 2),
+                                                     "--save_dir", save + "_half", "--profile"])
     half = cuda_mod.launch_counts()
+    print(out.getvalue(), end="", flush=True)
+    profile = check_profile(out.getvalue(), half_run.run_dir, ("build_pipeline", "generate_targets", "solve_chunk"))
     per_step = {}
     for name, n in of_dtype(counts).items():
         d, m = divmod(n - half[name], steps - steps // 2)
@@ -849,7 +917,7 @@ def phase_attribute(torch, port, gpu):
             "chain_steps_per_s": steps * r.chains / r.solve_seconds,
             "max_memory_allocated_bytes": peak, "losses": r.losses, "bit_acc": r.bit_accs,
             "launches": counts, "launches_half_run": half, "launches_per_step": per_step,
-            "weight_packings": packs, "gpu": gpu}
+            "weight_packings": packs, "half_run_profile": profile, "gpu": gpu}
     emit(line)
     return counts, per_step, line
 
@@ -1221,8 +1289,9 @@ def phase_attribute_encoder(torch, port, gpu):
     cuda_mod = port["_cuda"]
     flags = FULL + ["--loss", "perceptual", "--sample_size", "2", "--n", "4", "--steps", "20",
                     "--augmentation", "Jpeg", "--attack_aware", "--init", "encoder", "--encoder_steps", "100",
-                    "--save_dir", os.path.join(OUT, "attribute_encoder")]
+                    "--save_dir", os.path.join(OUT, "attribute_encoder"), "--profile"]
     cuda_mod.reset_launches()
+    port["profiling"].report(reset=True)
     out = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
@@ -1237,7 +1306,8 @@ def phase_attribute_encoder(torch, port, gpu):
     check(len(r.bit_accs) == 2 and all(v == v and abs(v) < float("inf") for v in r.losses),
           f"rows {r.bit_accs}, losses {r.losses}")
     check_all_launched(counts, "cli.attribute --init encoder")
-    emit({"phase": "attribute_encoder", "encoder_line": lines[0], "seconds": seconds,
+    profile = check_profile(text, r.run_dir, ("build_pipeline", "generate_targets", "train_encoder", "solve_chunk"))
+    emit({"phase": "attribute_encoder", "encoder_line": lines[0], "seconds": seconds, "profile": profile,
           "solve_seconds": r.solve_seconds, "chain_steps_per_s": r.chain_steps / r.solve_seconds,
           "bit_acc": r.bit_accs, "losses": r.losses, "launches": counts, "gpu": gpu})
     return counts
@@ -2255,6 +2325,264 @@ def phase_evaluate(torch, port, gpu, device="cuda", argv=EVALUATE, squeeze_argv=
     return counts
 
 
+# phase 18: the runs both ranks make, and that this process repeats on one device
+PARALLEL_ATTRIBUTE = FULL + ["--loss", "perceptual", "--sample_size", "2", "--n", "4"]
+PARALLEL_TRAIN = ["--device", "cuda", "--img_size", "64", "--channel_max", "128", "--batch", "16", "--steps", "8",
+                  "--chunk", "8", "--seed", "0", "--out", ""]
+# the 1-step runs' losses (the loss at the restarts' starts): one float32 computation at batch 4 (a rank)
+# and 8 (one process), which may take other cuBLAS / cuDNN algorithms.  The 10-step runs' losses are
+# printed, not held: Adam's first steps are ~lr * sign(g), so a rounding difference in a near-zero
+# gradient moves a coordinate by 2 * lr and free solves part (on this phase's first chip run: 0.8% and
+# 10%; on the CPU, 1.2e-7 relative at step 1 grows to 4.4e-4 at step 10 between batch 8 and 2 x 4)
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_TRAIN_TOL = dict(rtol=2e-2, atol=1e-3)  # the reference package's tests/test_training_mesh.py
+
+
+def parallel_worker(work: str) -> int:
+    """One rank of phase 18 (started by ``torch.distributed.run``, two ranks
+    on the one card): ``cli.attribute --mesh_data 2`` at full width, the tiny
+    configuration's planted keys through ``attribute_on_mesh``, ``cli.train
+    --mesh_data 2``; cuDNN held to its deterministic algorithms.  Writes
+    ``rank<r>.json`` into ``work``."""
+    import torch
+
+    port = import_port()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    global BF16
+    BF16 = port["roof"].BF16_SUFFIX
+    t_start = time.time()
+    mh, cuda_mod = port["multihost"], port["_cuda"]
+    device = mh.initialize(device="cuda")
+    rank = mh.process_index()
+    rec = {"rank": rank, "world": mh.process_count(), "device": str(device),
+           "backend": torch.distributed.get_backend(), "local_rank": int(os.environ["LOCAL_RANK"])}
+    cuda_mod.reset_launches()
+    t0 = time.time()
+    r = port["cli_attribute"].run(PARALLEL_ATTRIBUTE + ["--steps", "10", "--mesh_data", "2",
+                                                        "--save_dir", os.path.join(work, "attribute_mesh")])
+    rec["attribute"] = {"bit_acc": r.bit_accs, "losses": r.losses, "run_dir": r.run_dir,
+                        "solve_seconds": r.solve_seconds, "seconds": time.time() - t0,
+                        "launches": cuda_mod.launch_counts()}
+    check_all_launched(rec["attribute"]["launches"], f"rank {rank}'s cli.attribute --mesh_data 2")
+    r = port["cli_attribute"].run(PARALLEL_ATTRIBUTE + ["--steps", "1", "--mesh_data", "2",
+                                                        "--save_dir", os.path.join(work, "attribute_mesh_1")])
+    rec["attribute_1"] = {"bit_acc": r.bit_accs, "losses": r.losses}
+
+    C, pl, ps = port["config"], port["pipeline"], port["psolver"]
+    t0 = time.time()
+    mcfg = C.ModelConfig(**TINY)
+    pipe = pl.build_pipeline(mcfg, C.FingerprintConfig(key_len=8, shift=56, n_pca_samples=2000),
+                             generator=torch.Generator().manual_seed(TINY_SEED), device=device, want_lpips=False)
+    imgs, _, _, bits, _ = pl.generate_fingerprinted(pipe, 4, torch.Generator().manual_seed(TINY_SEED + 1))
+    res = ps.attribute_on_mesh(port["pmesh"].make_mesh(data=2), pipe.gen_params, None, pipe.basis, pipe.noise, imgs,
+                               mcfg=mcfg, acfg=C.AttributionConfig(steps=300, n_starts=4, lr=0.2, loss="mse"),
+                               generator=torch.Generator().manual_seed(TINY_SEED + 2))
+    rec["recovery"] = {"bit_acc": [float(a) for a in port["attribute"].evaluate_attribution(res, bits)["bit_acc"]],
+                       "key_bits": res.key_bits.cpu().tolist(), "seconds": time.time() - t0}
+
+    t0 = time.time()
+    metrics = os.path.join(work, f"train_mesh_{rank}.jsonl")
+    check(port["cli_train"].main(PARALLEL_TRAIN + ["--mesh_data", "2", "--metrics_out", metrics]) == 0,
+          "cli.train --mesh_data 2")
+    rec["train"] = {"rows": [json.loads(ln) for ln in open(metrics)] if rank == 0 else [],
+                    "seconds": time.time() - t0}
+
+    # the model axis: generation on a 1 x 2 mesh (each rank half of every styled conv's output
+    # channels) against the unsharded generator, and the shapes blur4 was launched at
+    t0 = time.time()
+    up, launch = port["up_cuda"], port["up_cuda"].blur4_launch
+    shapes = []
+
+    def recording(x, *args):
+        shapes.append(tuple(x.shape))
+        return launch(x, *args)
+
+    pipe = pl.build_pipeline(C.ModelConfig(img_size=256), C.FingerprintConfig(key_len=64, shift=448),
+                             generator=torch.Generator().manual_seed(0), device=device, want_lpips=False)
+    mesh12 = port["pmesh"].make_mesh(data=1, model=2)
+    placed = ps.place_pipeline(mesh12, pipe, shard_model=True)
+    up.blur4_launch = recording
+    try:
+        imgs_tp = ps.generate_on_mesh(mesh12, placed, 2, torch.Generator().manual_seed(11))[0]
+        sharded_shapes, shapes[:] = list(shapes), []
+        imgs_one = pl.generate_fingerprinted(pipe, 2, torch.Generator().manual_seed(11))[0]
+        full_shapes = list(shapes)
+    finally:
+        up.blur4_launch = launch
+    err = float((imgs_tp - imgs_one).abs().max()) / max(1.0, float(imgs_one.abs().max()))
+    check(err <= TOL, f"rank {rank}: the 1 x 2 mesh's images are {err:.3g} (of max) from the unsharded ones")
+    check(sorted(sharded_shapes) == sorted(s[:3] + (s[3] // 2,) for s in full_shapes),
+          f"blur4 on the 1 x 2 mesh at {sharded_shapes}, unsharded at {full_shapes}")
+    rec["model_axis"] = {"max_err_of_max": err, "blur4_shapes": sharded_shapes, "seconds": time.time() - t0}
+
+    # the engine on the 2-rank data mesh: rank 0 serves HTTP, rank 1 follows its batches
+    t0 = time.time()
+    engine, server = port["cli_serve"].build_server(FULL + ["--loss", "perceptual", "--buckets", "2", "--steps", "10",
+                                                            "--n", "4", "--port", "0", "--mesh_data", "2"])
+    if server is None:
+        engine.follow()
+        rec["serve"] = {"follower": True, "seconds": time.time() - t0}
+    else:
+        import base64
+
+        import numpy as np
+
+        port["server"].serve_forever_in_thread(server)
+        base = "http://%s:%d" % server.server_address[:2]
+        try:
+            gen, gen_ms = _http("POST", base + "/v1/generate", {"seed": 7, "encoding": "float_list"})
+            img = np.asarray(gen["image"], dtype=np.float32)
+            buf = io.BytesIO()
+            np.save(buf, img)
+            dec, dec_ms = _http("POST", base + "/v1/attribute",
+                                {"image_npy_b64": base64.b64encode(buf.getvalue()).decode()})
+            stats, _ = _http("GET", base + "/v1/stats")
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+        check(img.shape == (256, 256, 3) and len(gen["key_bits"]) == 64 and len(dec["key_bits"]) == 64,
+              f"served shapes {img.shape}, {len(gen['key_bits'])}, {len(dec['key_bits'])}")
+        check(dec["loss"] is not None and stats["generate"]["batches"] == stats["attribute"]["batches"] == 1,
+              f"served attribution loss {dec['loss']}, stats {stats}")
+        rec["serve"] = {"generate_ms": gen_ms, "attribute_ms": dec_ms, "bit_acc_of_served_image": sum(
+            a == b for a, b in zip(gen["key_bits"], dec["key_bits"])) / 64, "loss": dec["loss"],
+            "seconds": time.time() - t0}
+    rec["seconds"] = time.time() - t_start
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def blur4_half_channel_rows(torch, port) -> dict:
+    """blur4 at the main path's forward shapes with half the channels (the
+    shapes a rank of a 1 x 2 mesh launches), batch 16: each shape against its
+    plain version (within ``TOL`` of max), and the launch function's, the plain
+    version's and the depthwise ``F.conv2d``'s times beside the bound, summed."""
+    import torch.nn.functional as F
+
+    up, upf, roof = port["up_cuda"], port["upf"], port["roof"]
+    k1 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)) * 4.0)
+    kt = torch.tensor(k1, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for c, h in roof.BLUR4_SHAPES:
+        c //= 2
+        x = torch.randn(16, h + 1, h + 1, c, device="cuda", generator=g)
+        wl = torch.outer(kt, kt).flip(0, 1).expand(c, 1, 4, 4).contiguous()
+        kf = lambda x=x: up.blur4_launch(x, k1[::-1], k1[::-1], (1, 1), (1, 1))  # noqa: E731
+        pf = lambda x=x: up.blur4_plain(x, k1, k1, (1, 1), (1, 1))  # noqa: E731
+        lf = lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=1, groups=c)  # noqa: E731
+        want = pf()
+        err = float((kf() - want).abs().max()) / max(1.0, float(want.abs().max()))
+        check(err <= TOL, f"blur4 at C{c}_H{h}: {err:.3g} of max from its plain version")
+        bound = roof.blur4(16, c, h, h)
+        rows[f"C{c}_H{h}"] = {"ms": median_ms(torch, kf), "plain_ms": median_ms(torch, pf),
+                              "library_ms": median_ms(torch, lf), "bound_ms": bound["bound_ms"],
+                              "bound_by": bound["bound_by"], "max_abs_err": err}
+    total = {k: sum(r[k] for r in rows.values()) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"batch": 16, "shapes": rows, **total, "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+
+
+def phase_parallel(torch, port, gpu):
+    """Two ranks on the one card over gloo (``torch.distributed.run``, the
+    worker above) against the same runs in this process: ``cli.attribute
+    --mesh_data 2`` (equal bit accuracies, 1-step losses within
+    ``PARALLEL_LOSS_RTOL``, every float32 kernel launched by each rank), the
+    tiny planted keys through ``attribute_on_mesh`` (phase 3's criterion on 4
+    samples), ``cli.train --mesh_data 2`` (metrics as the reference's mesh
+    test compares them); the model axis and the served engine as the worker
+    checks them.  The nccl route (a card a rank) needs a second card."""
+    work = os.path.join(ROOT, "_chip_work", "parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_start = time.time()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                        os.path.join(ROOT, "chip_smoke.py"), "--parallel-worker", work],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    launch_seconds = time.time() - t_start
+    print(r.stdout[-6000:], end="", flush=True)
+    check(r.returncode == 0, f"the two-rank run returned {r.returncode}: {r.stderr[-3000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    check([x["backend"] for x in ranks] == ["gloo", "gloo"] and [x["device"] for x in ranks] == ["cuda:0", "cuda:0"],
+          f"backends / devices {[(x['backend'], x['device']) for x in ranks]}")
+    a0, a1 = ranks[0]["attribute"], ranks[1]["attribute"]
+    for key in ("attribute", "attribute_1"):
+        check(all(ranks[0][key][k] == ranks[1][key][k] for k in ("bit_acc", "losses")),
+              f"the ranks disagree on the result of {key}")
+    check(os.path.exists(os.path.join(a0["run_dir"], "result.txt")), "rank 0 wrote no result.txt")
+    check(len(os.listdir(os.path.join(work, "attribute_mesh", "None", "fixed_sigma_10", "shift_448"))) == 1,
+          "more than one run directory: only rank 0 writes")
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t0 = time.time()
+        single = port["cli_attribute"].run(PARALLEL_ATTRIBUTE + ["--steps", "10",
+                                                                 "--save_dir", os.path.join(work, "attribute_one")])
+        single_seconds = time.time() - t0
+        single_1 = port["cli_attribute"].run(PARALLEL_ATTRIBUTE + ["--steps", "1",
+                                                                   "--save_dir", os.path.join(work, "attribute_one_1")])
+        metrics = os.path.join(work, "train_one.jsonl")
+        check(port["cli_train"].main(PARALLEL_TRAIN + ["--metrics_out", metrics]) == 0, "cli.train")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    check(a0["bit_acc"] == single.bit_accs, f"bit accuracies {a0['bit_acc']} on two ranks, {single.bit_accs} on one")
+    b1 = ranks[0]["attribute_1"]
+    check(b1["bit_acc"] == single_1.bit_accs, f"1 step: bit accuracies {b1['bit_acc']} on two ranks, "
+          f"{single_1.bit_accs} on one")
+    loss_rel_1 = max(abs(a - b) / abs(b) for a, b in zip(b1["losses"], single_1.losses))
+    check(loss_rel_1 <= PARALLEL_LOSS_RTOL, f"1 step: losses {b1['losses']} on two ranks, {single_1.losses} on one")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(a0["losses"], single.losses))
+
+    rec0, rec1 = ranks[0]["recovery"], ranks[1]["recovery"]
+    accs = rec0["bit_acc"]
+    check(rec0 == {**rec1, "seconds": rec0["seconds"]}, "the ranks disagree on the planted keys")
+    check(sum(accs) / 4 > 0.85 and sum(a >= 1.0 for a in accs) >= 3, f"planted keys on two ranks: {accs}")
+
+    one = [json.loads(ln) for ln in open(metrics)]
+    mesh_rows = ranks[0]["train"]["rows"]
+    check([x["step"] for x in mesh_rows] == list(range(1, 9)) == [x["step"] for x in one], "metric rows")
+    train_rel = 0.0
+    for a, b in zip(mesh_rows, one):
+        for k in ("d_loss", "r1", "g_loss"):
+            err = abs(a[k] - b[k])
+            check(err <= PARALLEL_TRAIN_TOL["atol"] + PARALLEL_TRAIN_TOL["rtol"] * abs(b[k]),
+                  f"step {a['step']} {k}: {a[k]} on two ranks, {b[k]} on one")
+            train_rel = max(train_rel, err / max(abs(b[k]), 1e-12))
+    shutil.rmtree(work, ignore_errors=True)
+    model_axis = [x["model_axis"] for x in ranks]
+    serve = next(x["serve"] for x in ranks if not x["serve"].get("follower"))
+    out = {"phase": "parallel", "world": 2, "backend": [x["backend"] for x in ranks],
+           "devices": [x["device"] for x in ranks], "nccl": "not reachable: one card",
+           "attribute": {"bit_acc": a0["bit_acc"], "losses": a0["losses"], "single_losses": single.losses,
+                         "max_loss_rel_diff": loss_rel, "losses_1_step": b1["losses"],
+                         "single_losses_1_step": single_1.losses, "max_loss_rel_diff_1_step": loss_rel_1,
+                         "loss_rtol_1_step": PARALLEL_LOSS_RTOL,
+                         "solve_seconds_per_rank": [x["attribute"]["solve_seconds"] for x in ranks],
+                         "single_solve_seconds": single.solve_seconds, "single_seconds": single_seconds},
+           "recovery": {"bit_acc": accs, "exact": sum(a >= 1.0 for a in accs), "seconds": rec0["seconds"]},
+           "train": {"steps": 8, "max_metric_rel_diff": train_rel, "tolerance": PARALLEL_TRAIN_TOL,
+                     "d_loss_last": [mesh_rows[-1]["d_loss"], one[-1]["d_loss"]]},
+           "model_axis": {"max_err_of_max": [m["max_err_of_max"] for m in model_axis],
+                          "blur4_shapes": model_axis[0]["blur4_shapes"],
+                          "seconds": [m["seconds"] for m in model_axis]},
+           "blur4_half_channels": blur4_half_channel_rows(torch, port), "serve": serve,
+           "launches_per_rank": [x["attribute"]["launches"] for x in ranks],
+           "rank_seconds": [x["seconds"] for x in ranks], "launch_seconds": launch_seconds,
+           "seconds": time.time() - t_start, "gpu": gpu}
+    emit(out)
+    return [x["attribute"]["launches"] for x in ranks]
+
+
 def import_port() -> dict:
     """The port's modules that the phases drive, by short name."""
     import importlib
@@ -2272,7 +2600,8 @@ def import_port() -> dict:
         ("cli_model_attribute", "cli.model_attribute"), ("model_attribution", "fingerprint.model_attribution"),
         ("biggan", "models.biggan"), ("lpips", "losses.lpips"), ("gan", "training.gan"),
         ("cli_train", "cli.train"), ("fid", "eval.fid"), ("inception", "eval.inception"),
-        ("cli_evaluate", "cli.evaluate"), ("tree", "utils.tree"))}
+        ("cli_evaluate", "cli.evaluate"), ("tree", "utils.tree"), ("multihost", "parallel.multihost"),
+        ("pmesh", "parallel.mesh"), ("psolver", "parallel.solver"), ("profiling", "utils.profiling"))}
 
 
 def main() -> int:
@@ -2347,7 +2676,10 @@ def main() -> int:
     emit({"phase": "studies_done", "seconds": time.time() - t0})
     t0 = time.time()
     evaluate_counts = phase_evaluate(torch, port, gpu)
-    emit({"phase": "evaluate_done", "seconds": time.time() - t0, "total_seconds": time.time() - t_start})
+    emit({"phase": "evaluate_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    parallel_counts = phase_parallel(torch, port, gpu)
+    emit({"phase": "parallel_done", "seconds": time.time() - t0, "total_seconds": time.time() - t_start})
 
     # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
     through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
@@ -2386,6 +2718,7 @@ def main() -> int:
             "launches_studies": study_counts[name],
             "launches_capacity": capacity_counts[name],
             "launches_evaluate": evaluate_counts[name],
+            "launches_parallel": [c[name] for c in parallel_counts],
             "max_abs_err": err, **times, "batch": 16,
             "launches_per_step": per_step[name],
             # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`) and blur4 at
@@ -2400,4 +2733,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2]))
     sys.exit(main())

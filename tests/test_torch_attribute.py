@@ -115,11 +115,11 @@ def test_perceptual_solve_matches_jax_loss_for_loss(direct_cpu_convs, mse_proble
         jp.gen_params, jp.lpips_params, jp.basis, jp.noise, mcfg_j, acfg_j, target_feats, None, opt))
 
     acfg = AttributionConfig(steps=steps, n_starts=3, loss="perceptual")
-    tl = lpips.params_from_jax(jp.lpips_params)
+    tl = lpips.params_from_jax(jp.lpips_params, "cpu")
     with torch.no_grad():
         tfeats = [f[:, None] for f in lpips.extract_features(tl, torch.from_numpy(np.array(imgs)))]
     _, tper_elem = attr.make_attribution_step(
-        rosinality.params_from_jax(jp.gen_params), tl, _basis_from_jax(jp.basis),
+        rosinality.params_from_jax(jp.gen_params, "cpu"), tl, _basis_from_jax(jp.basis),
         [torch.from_numpy(np.array(n)) for n in jp.noise], ModelConfig(**MKW), acfg, tfeats, None)
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     params = {"alpha": a0, "key": jnp.zeros((2, 3, 8))}
@@ -241,6 +241,8 @@ def test_port_never_imports_jax():
         f"from {PORT}.cli import model_attribute\n"
         f"from {PORT}.fingerprint import model_attribution as ma\n"
         f"from {PORT}.models import biggan as bg\n"
+        f"from {PORT}.parallel import mesh, multihost, solver, train as ptrain\n"
+        f"from {PORT}.utils import profiling\n"
         "m = ModelConfig(img_size=8, style_dim=16, n_mlp=1, channel_max=16)\n"
         "fp = FingerprintConfig(key_len=4, shift=8, n_pca_samples=100)\n"
         "p = pl.build_pipeline(m, fp, device='cpu')\n"
@@ -299,7 +301,7 @@ def mse_problem():
     imgs, _, _, bits, alpha = jpl.generate_fingerprinted(jp, jax.random.PRNGKey(1), S_)
     a0 = lhs_alpha_init_batch(jax.random.PRNGKey(2), S_, N_, jp.basis.sigma_rest)
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    port = dict(gen_params=rosinality.params_from_jax(jp.gen_params), basis=_basis_from_jax(jp.basis),
+    port = dict(gen_params=rosinality.params_from_jax(jp.gen_params, "cpu"), basis=_basis_from_jax(jp.basis),
                 noise=[t(n) for n in jp.noise], mcfg=ModelConfig(**MKW))
     return dict(jp=jp, mcfg_j=mcfg_j, imgs=imgs, bits=bits, alpha=alpha, a0=a0, port=port, t=t)
 

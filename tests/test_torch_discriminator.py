@@ -111,7 +111,7 @@ def test_discriminator_forward_input_grad_and_r1_match_jax(jd, direct_cpu_convs)
 
     jlogits, jg, jr1, jdr1 = jax_side(jd, jnp.asarray(x))
 
-    dp = rosinality.discriminator_params_from_jax(jd)
+    dp = rosinality.discriminator_params_from_jax(jd, "cpu")
     leaves = tree_leaves(dp)
     for p in leaves:
         p.requires_grad_(True)
@@ -206,7 +206,7 @@ def test_prepare_latent_mixing_and_truncation_match_jax(jg):
     z1, z2 = (rng.standard_normal((2, 32)).astype(np.float32) for _ in range(2))
     w3 = rng.standard_normal((2, JCFG.n_latent, 32)).astype(np.float32)
     zm = rng.standard_normal((64, 32)).astype(np.float32)
-    tg = rosinality.params_from_jax(jg)
+    tg = rosinality.params_from_jax(jg, "cpu")
     t = torch.from_numpy
     mean_j = np.asarray(jax.jit(lambda p, z: jnp.mean(jsg2.mapping_network(p, z, JCFG.lr_mlp), 0, keepdims=True))(
         jg, jnp.asarray(zm)))
@@ -235,7 +235,7 @@ def test_synthesize_mixed_matches_jax(jg):
     noise = [rng.standard_normal(s).astype(np.float32) for s in jsg2.noise_shapes(16)]
     jpipe = jpl.Pipeline(mcfg=JCFG, fpcfg=None, gen_params=jg, basis=None, pca=None,
                          noise=tuple(jnp.asarray(n) for n in noise))
-    tpipe = pl.Pipeline(mcfg=CFG, fpcfg=None, gen_params=rosinality.params_from_jax(jg), basis=None, pca=None,
+    tpipe = pl.Pipeline(mcfg=CFG, fpcfg=None, gen_params=rosinality.params_from_jax(jg, "cpu"), basis=None, pca=None,
                         noise=[torch.from_numpy(n) for n in noise], device=torch.device("cpu"))
     for inject in (None, 2):
         want = np.asarray(jax.jit(lambda a, b: jpl.synthesize_mixed(jpipe, a, b, inject))(w0, wx))

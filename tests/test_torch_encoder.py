@@ -101,7 +101,7 @@ def _jloss(p, imgs, alpha, bits, sigma):
 
 def _to_port_layout(jtree):
     """A JAX-layout tree (params or gradients) in the port's layout, as numpy."""
-    return jax.tree.map(lambda t: t.numpy(), enc.encoder_params_from_jax(jtree))
+    return jax.tree.map(lambda t: t.numpy(), enc.encoder_params_from_jax(jtree, "cpu"))
 
 
 def _assert_trees_close(got, want, rtol, atol=0.0):
@@ -117,7 +117,7 @@ def test_apply_encoder_matches_jax(jinit, img_size):
     jp = _jparams(jinit, img_size)
     imgs, *_ = _batch(np.random.default_rng(img_size), 3, img_size)
     ja, jk = jax.jit(jenc.apply_encoder)(jp, imgs)
-    ta, tk = enc.apply_encoder(enc.encoder_params_from_jax(jp), torch.from_numpy(imgs))
+    ta, tk = enc.apply_encoder(enc.encoder_params_from_jax(jp, "cpu"), torch.from_numpy(imgs))
     assert ta.shape == (3, D_ALPHA) and tk.shape == (3, KEY_LEN)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-4, atol=1e-5)
@@ -134,7 +134,7 @@ def test_loss_and_gradients_match_jax(jinit, img_size):
     jp = _jparams(jinit, img_size)
     imgs, alpha, bits, sigma = _batch(np.random.default_rng(7 + img_size), 4, img_size)
     jl, jg = jax.jit(jax.value_and_grad(_jloss))(jp, imgs, alpha, bits, sigma)
-    leaves, spec = torch.utils._pytree.tree_flatten(enc.encoder_params_from_jax(jp))
+    leaves, spec = torch.utils._pytree.tree_flatten(enc.encoder_params_from_jax(jp, "cpu"))
     leaves = [t.requires_grad_(True) for t in leaves]
     tl = enc.encoder_loss(torch.utils._pytree.tree_unflatten(leaves, spec), *_t(imgs, alpha, bits, sigma))
     tg = torch.utils._pytree.tree_unflatten([g.numpy() for g in torch.autograd.grad(tl, leaves)], spec)
@@ -173,17 +173,17 @@ def test_five_clipped_adam_steps_match_optax(jinit):
     assert norms[2] > 1.0 and min(norms[:2] + norms[3:]) < 1.0, norms
     want = _to_port_layout(jps)
 
-    leaves, spec = torch.utils._pytree.tree_flatten(enc.encoder_params_from_jax(jp))
-    ost = enc.init_opt_state(enc.encoder_params_from_jax(jp))
+    leaves, spec = torch.utils._pytree.tree_flatten(enc.encoder_params_from_jax(jp, "cpu"))
+    ost = enc.init_opt_state(enc.encoder_params_from_jax(jp, "cpu"))
     for g in jgrads:
-        g_leaves, _ = torch.utils._pytree.tree_flatten(enc.encoder_params_from_jax(g))
+        g_leaves, _ = torch.utils._pytree.tree_flatten(enc.encoder_params_from_jax(g, "cpu"))
         leaves, ost = enc.clip_adam_update(leaves, g_leaves, ost, 2e-3, 1.0)
     assert ost["count"] == 5
     got = torch.utils._pytree.tree_unflatten([t.numpy() for t in leaves], spec)
     _assert_trees_close(got, want, rtol=1e-5, atol=1e-7)
 
     ecfg = enc.EncoderConfig(width=8, max_width=16, head_dim=16, lr=2e-3, grad_clip=1.0)
-    tp, ost = enc.encoder_params_from_jax(jp), enc.init_opt_state(enc.encoder_params_from_jax(jp))
+    tp, ost = enc.encoder_params_from_jax(jp, "cpu"), enc.init_opt_state(enc.encoder_params_from_jax(jp, "cpu"))
     losses = []
     for b in batches:
         tp, ost, loss = enc.train_step(tp, ost, *_t(*b), ecfg)
@@ -227,7 +227,7 @@ def test_render_matches_jax_synthesis_in_float32(render_problem):
     want = np.clip(unclipped, -1, 1)
     scale = float(np.abs(unclipped).max())
     basis = FingerprintBasis(**{k: torch.from_numpy(v) for k, v in arrs.items()}, sd_moved=1.0)
-    params, tnoise = rosinality.params_from_jax(jax.tree.map(np.asarray, jparams)), [torch.from_numpy(n) for n in noise]
+    params, tnoise = rosinality.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"), [torch.from_numpy(n) for n in noise]
     _, twx = embed(basis, torch.from_numpy(alpha), torch.from_numpy(bits))
     got32 = torch.clamp(sg2.synthesis(params, twx[:, None, :].expand(-1, jsg2.n_latent(16), -1), tnoise), -1.0, 1.0)
     np.testing.assert_allclose(got32.numpy(), want, atol=1e-4 * max(1.0, scale))
@@ -240,7 +240,7 @@ def test_render_matches_jax_synthesis_in_float32(render_problem):
 
 def test_encoder_solve_init_semantics(jinit):
     rng = np.random.default_rng(9)
-    params = enc.encoder_params_from_jax(_jparams(jinit, 16))
+    params = enc.encoder_params_from_jax(_jparams(jinit, 16), "cpu")
     # large head weights so some logits leave +-2 and the clip has work to do
     params["head_key"] = params["head_key"] * 200.0
     sigma = torch.from_numpy((0.5 + rng.random(D_ALPHA)).astype(np.float32))

@@ -62,7 +62,7 @@ def trees():
         return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
 
     tree = jax.tree_util.tree_map_with_path(fill, shapes)
-    return tree, jax.tree.map(jnp.asarray, tree), inc.params_from_jax(tree)
+    return tree, jax.tree.map(jnp.asarray, tree), inc.params_from_jax(tree, "cpu")
 
 
 _jfeatures = jax.jit(jinc.inception_features)

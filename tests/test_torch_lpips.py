@@ -30,7 +30,7 @@ def params():
     # non-uniform lin heads so each channel's weight matters
     jp = dict(jp, lin=tuple(jnp.asarray(rng.uniform(0, 2, c).astype(np.float32) / c)
                             for c in jlp.LPIPS_CHANNELS))
-    return jp, lpips.params_from_jax(jp)
+    return jp, lpips.params_from_jax(jp, "cpu")
 
 
 @pytest.fixture(scope="module")

@@ -71,7 +71,7 @@ def _params(net):
     tree = {"net": raw, "lin": [rng.uniform(0.0, 2.0 / c, c).astype(np.float32) for c in chans]}
     jtree = jax.tree.map(jnp.asarray, {"net": tuple(raw) if net == "alex" else
                                        dict(raw, fires=tuple(raw["fires"])), "lin": tuple(tree["lin"])})
-    return tree, jtree, lp.params_from_jax(jtree)
+    return tree, jtree, lp.params_from_jax(jtree, "cpu")
 
 
 # one compile a (net, size): op by op the JAX side compiles every primitive alone

@@ -86,7 +86,7 @@ def test_generator_pca_spans_the_jax_subspaces(jpipe):
     subspaces (compared as projectors)."""
     z = np.array(jax.random.normal(jax.random.PRNGKey(1), (2000, 64)))
     jb = jpca.pca_from_samples(jsg2.mapping_network(jpipe.gen_params, jnp.asarray(z), 0.01))
-    tparams = rosinality.params_from_jax(jpipe.gen_params)
+    tparams = rosinality.params_from_jax(jpipe.gen_params, "cpu")
     tb = pca.perform_pca_for_params(tparams, 0.01, z=torch.from_numpy(z))
     jsig, tsig = np.asarray(jb.sigma), tb.sigma.numpy()
     np.testing.assert_allclose(tsig ** 2, jsig ** 2, rtol=1e-4, atol=1e-4 * jsig[0] ** 2)
@@ -127,7 +127,7 @@ def test_generate_fingerprinted_given_jax_draws(jpipe):
     imgs, w0, wx, bits, alpha = jpl.generate_fingerprinted(jpipe, jax.random.PRNGKey(3), 2)
     tpipe = pipeline.Pipeline(
         mcfg=ModelConfig(**MKW), fpcfg=FingerprintConfig(**FKW),
-        gen_params=rosinality.params_from_jax(jpipe.gen_params),
+        gen_params=rosinality.params_from_jax(jpipe.gen_params, "cpu"),
         basis=basis_from_jax(jpipe.basis), pca=None,
         noise=[torch.from_numpy(np.asarray(n)) for n in jpipe.noise], device=torch.device("cpu"),
     )

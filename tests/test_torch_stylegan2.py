@@ -83,7 +83,7 @@ def _torch_forward_grad(params, w, noise, target):
 def test_generator_pixels_and_latent_grad_match_jax(jparams, inputs):
     w, noise, target = inputs
     jimg, jg = _jax_forward_grad(jparams, w, noise, target)
-    timg, tg = _torch_forward_grad(rosinality.params_from_jax(jparams, cfg=CFG), w, noise, target)
+    timg, tg = _torch_forward_grad(rosinality.params_from_jax(jparams, "cpu", cfg=CFG), w, noise, target)
     assert timg.shape == (2, 32, 32, 3)
     _close(timg, jimg)
     _close(tg, jg)
@@ -95,11 +95,11 @@ def test_rosinality_round_trip_matches_jax(jparams, inputs):
     are flipped back exactly once, at use."""
     w, noise, target = inputs
     sd = jros.generator_state_dict_from_params(jax.tree.map(np.asarray, jparams))
-    params = rosinality.generator_params_from_state_dict(sd, CFG)
+    params = rosinality.generator_params_from_state_dict(sd, CFG, "cpu")
     jimg, _ = _jax_forward_grad(jparams, w, noise, target)
     timg, _ = _torch_forward_grad(params, w, noise, target)
     _close(timg, jimg)
-    direct = rosinality.params_from_jax(jparams)
+    direct = rosinality.params_from_jax(jparams, "cpu")
     for (pa, a), (pb, b) in zip(_leaves(params), _leaves(direct)):
         assert pa == pb
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=pa)
@@ -116,13 +116,13 @@ def _leaves(tree, path=""):
 def test_mapping_network_matches_jax(jparams):
     z = np.random.default_rng(2).standard_normal((5, 64)).astype(np.float32)
     want = np.asarray(jsg2.mapping_network(jparams, jnp.asarray(z), JCFG.lr_mlp))
-    got = sg2.mapping_network(rosinality.params_from_jax(jparams), torch.from_numpy(z), CFG.lr_mlp)
+    got = sg2.mapping_network(rosinality.params_from_jax(jparams, "cpu"), torch.from_numpy(z), CFG.lr_mlp)
     _close(got.numpy(), want)
 
 
 def test_wrong_architecture_is_refused(jparams):
     with pytest.raises(ValueError):
-        rosinality.params_from_jax(jparams, cfg=ModelConfig(img_size=64, channel_max=64, n_mlp=2, style_dim=64))
+        rosinality.params_from_jax(jparams, "cpu", cfg=ModelConfig(img_size=64, channel_max=64, n_mlp=2, style_dim=64))
 
 
 def test_init_generator_params_shapes():
