@@ -17,8 +17,10 @@ Run:
         --prune_starts 2 --polish_sweeps 1 --chunk_samples 1
 
 ``--dtype bfloat16`` runs synthesis and LPIPS in bfloat16 (the bf16 kernels)
-with the optimizer state and the loss in float32; a resumed run takes the
-dtype saved in its run directory.
+with the optimizer state and the loss in float32; ``--remat``
+gradient-checkpoints the synthesis blocks (the same solve in less memory:
+more restart chains fit in one chunk).  A resumed run takes the dtype and
+``--remat`` saved in its run directory.
 
 Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
 <this module> ...``) each sample chunk is solved with its samples sharded
@@ -223,7 +225,7 @@ def run(argv=None) -> AttributeRun:
                 res = attr.attribute_chunked(
                     pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, targets[c0:c1],
                     mcfg=cfg.model, acfg=acfg, generator=fold_in(opt_seed, c0),
-                    chunk_starts=args.chunk_starts, solve_fn=solve_fn, dtype=cfg.run.dtype,
+                    chunk_starts=args.chunk_starts, solve_fn=solve_fn, dtype=cfg.run.dtype, remat=cfg.run.remat,
                     attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
                     alpha_init=None if alpha_init_all is None else alpha_init_all[c0:c1],
                     key_init=None if key_init_all is None else key_init_all[c0:c1], **pl.solver_kwargs(pipe))

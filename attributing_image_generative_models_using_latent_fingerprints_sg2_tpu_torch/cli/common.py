@@ -85,6 +85,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype of synthesis and LPIPS in the solve: float32 | bfloat16 (mixed "
                    "precision: the optimizer state and the loss stay float32)")
+    p.add_argument("--remat", action="store_true", help="gradient-checkpoint synthesis blocks")
     p.add_argument("--mesh_data", type=int, default=0,
                    help="data-parallel ranks (0 = every rank of the torchrun job; 1 = no mesh): each rank "
                    "solves or renders its rows, rank 0 writes the run's files")
@@ -132,7 +133,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         ),
         run=RunConfig(sample_size=args.sample_size, batch_size=args.batch_size,
                       save_dir=args.save_dir, seed=args.seed, device=args.device, dtype=args.dtype,
-                      mesh_data=args.mesh_data, mesh_model=args.mesh_model),
+                      remat=args.remat, mesh_data=args.mesh_data, mesh_model=args.mesh_model),
     )
 
 

@@ -85,7 +85,7 @@ def calibrate(pipes: Dict[str, pl.Pipeline], cfg: Config, n: int, generator: tor
                              torch.clamp(imgs, -1.0, 1.0) if clip else imgs, mcfg=p.mcfg, acfg=acfg,
                              generator=fold_in(generator, 4000 + i),
                              attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
-                             dtype=cfg.run.dtype, **pl.solver_kwargs(p))
+                             dtype=cfg.run.dtype, remat=cfg.run.remat, **pl.solver_kwargs(p))
         losses.append(res.loss.cpu().numpy())
     return calibrate_open_set_threshold(np.concatenate(losses), percentile=percentile, slack=slack)
 
@@ -171,7 +171,7 @@ def run(argv=None) -> dict:
     t0 = time.time()
     res = attribute_model(pipes, targets.to(device), fold_in(root, 5000), acfg, open_set_threshold=tau,
                           attack_cfg=cfg.attack if acfg.solver_attack != "None" else None,
-                          dtype=cfg.run.dtype)
+                          dtype=cfg.run.dtype, remat=cfg.run.remat)
     dt = time.time() - t0
     n = targets.shape[0]
     print(f"[model_attribute] solved {n} targets x {len(pipes)} models in {dt:.1f}s")

@@ -99,6 +99,7 @@ class RunConfig:
     seed: int = 0
     device: str = "cuda"
     dtype: str = "float32"  # compute dtype of synthesis and LPIPS in the solve ("float32" | "bfloat16")
+    remat: bool = False  # gradient-checkpoint the synthesis blocks in the solve (torch.utils.checkpoint)
     mesh_data: int = 1  # data-parallel ranks (samples x starts, the batch): parallel/mesh.py
     mesh_model: int = 1  # model-parallel ranks (the styled convs' output channels)
 

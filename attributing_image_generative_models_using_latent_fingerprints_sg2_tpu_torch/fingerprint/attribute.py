@@ -37,6 +37,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..attacks import make_solver_attack
 from ..attacks.blur import separable_blur
@@ -98,7 +99,7 @@ def make_attribution_step(
     gen_params, lpips_params, basis: FingerprintBasis, noise, mcfg: ModelConfig,
     acfg: AttributionConfig, target_feats, targets, attack_cfg: Optional[AttackConfig] = None,
     biggan_cfg: Optional[bg.BigGANConfig] = None, class_onehot: Optional[torch.Tensor] = None,
-    truncation: float = 0.4, dtype: str = "float32",
+    truncation: float = 0.4, dtype: str = "float32", remat: bool = False, remat_lpips: bool = False,
 ) -> Tuple[Callable, Callable]:
     """(step, per_elem_loss) for [S, n] restarts, synthesis and LPIPS in ``dtype``.
 
@@ -112,7 +113,11 @@ def make_attribution_step(
     channel model before the loss (``attack_cfg`` gives the strengths); with
     ``ctf_sigma`` (mse) estimate and target are blurred by it.  BigGAN
     (``mcfg.model == "biggan"``) renders with ``class_onehot`` [1, classes]
-    at the host float ``truncation``.
+    at the host float ``truncation``.  ``remat`` gradient-checkpoints
+    StyleGAN2's synthesis blocks (``models.stylegan2.synthesis``),
+    ``remat_lpips`` LPIPS's feature extraction as a whole: the backward runs
+    their forward again instead of keeping its activations (the same loss and
+    gradients, less memory, more time).
     """
     nl = mcfg.n_latent
     cdtype = compute_dtype(dtype)
@@ -133,12 +138,16 @@ def make_attribution_step(
                                biggan_cfg)
         else:
             wplus = wx[:, None, :].expand(-1, nl, -1).to(cdtype)
-            imgs = sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel)
+            imgs = sg2.synthesis(gen_params, wplus, noise, blur_kernel=mcfg.blur_kernel, remat=remat)
         if solver_attack is not None:
             # the channel model in float32 (JPEG's DCT and quantisation lose too much in bf16)
             imgs = solver_attack(imgs.float()).to(imgs.dtype)
         if acfg.loss == "perceptual":
-            feats = lpips_mod.extract_raw_features(lpips_params, imgs)
+            if remat_lpips and torch.is_grad_enabled():
+                feats = torch.utils.checkpoint.checkpoint(lpips_mod.extract_raw_features, lpips_params, imgs,
+                                                          use_reentrant=False)
+            else:
+                feats = lpips_mod.extract_raw_features(lpips_params, imgs)
             feats = [f.reshape((s_, n_) + tuple(f.shape[1:])) for f in feats]
             per = lpips_mod.distance_from_raw_features(lpips_params, feats, target_feats)
         else:
@@ -287,6 +296,8 @@ def attribute(
     class_onehot: Optional[torch.Tensor] = None,
     truncation: float = 0.4,
     dtype: str = "float32",
+    remat: bool = False,
+    remat_lpips: bool = False,
 ) -> AttributionResult:
     """Solve attribution for a batch of targets, all samples x restarts at once.
 
@@ -294,7 +305,8 @@ def attribute(
     centered-LHS / zero restart initialization (drawn from ``generator``);
     ``n_starts`` overrides ``acfg.n_starts`` (a restart chunk).  BigGAN
     pipelines pass ``pipeline.solver_kwargs(pipe)``.  ``dtype`` is the compute
-    dtype of synthesis and LPIPS (module docstring)."""
+    dtype of synthesis and LPIPS (module docstring); ``remat`` /
+    ``remat_lpips`` gradient-checkpoint them (:func:`make_attribution_step`)."""
     n_starts = acfg.n_starts if n_starts is None else n_starts
     steps = acfg.steps
     device = targets.device
@@ -309,7 +321,7 @@ def attribute(
     target_feats, tgt = _targets_for_loss(lpips_params, targets, acfg, dtype)
     step, per_elem = make_attribution_step(gen_params, lpips_params, basis, noise, mcfg, acfg,
                                            target_feats, tgt, attack_cfg, biggan_cfg, class_onehot, truncation,
-                                           dtype)
+                                           dtype, remat=remat, remat_lpips=remat_lpips)
     sigmas = ctf_sigmas(acfg, steps)
     state = init_state(alpha0, key0)
     per = None

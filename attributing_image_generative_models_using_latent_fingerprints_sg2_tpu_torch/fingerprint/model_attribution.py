@@ -90,7 +90,7 @@ def attribute_model(
     best loss exceeds ``open_set_threshold`` is attributed to no registered
     model (default inf: closed set; ``calibrate_open_set_threshold`` sets it
     from in-distribution solves).  ``attribute_kwargs`` (``attack_cfg``,
-    ``n_starts`` ...) go to every solve unchanged."""
+    ``n_starts``, ``dtype``, ``remat`` ...) go to every solve unchanged."""
     if not pipes:
         raise ValueError("empty model registry")
     names = list(pipes.keys())

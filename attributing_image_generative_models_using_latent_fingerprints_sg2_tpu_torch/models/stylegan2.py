@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..config import ModelConfig
 from ..ops.fused_act import fused_leaky_relu
@@ -155,8 +156,14 @@ def mapping_network(params: Params, z: torch.Tensor, lr_mlp: float = 0.01) -> to
 
 def synthesis(params: Params, latent: torch.Tensor,
               noise: Optional[Sequence[Optional[torch.Tensor]]], *,
-              blur_kernel: Sequence[int] = (1, 3, 3, 1)) -> torch.Tensor:
-    """W+ latent [B, n_latent, style_dim] -> image [B, H, W, 3]."""
+              blur_kernel: Sequence[int] = (1, 3, 3, 1), remat: bool = False) -> torch.Tensor:
+    """W+ latent [B, n_latent, style_dim] -> image [B, H, W, 3].
+
+    ``remat``: gradient checkpointing.  Each upsample block (its two styled
+    convs and its ToRGB) keeps only its inputs for the backward, which runs
+    its forward again (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``).  The skip chain that sums the ToRGB outputs stands
+    outside the blocks and saves what it saves without."""
     if noise is None:
         noise = [None] * (1 + 2 * len(params["to_rgbs"]))
     const = params["input"]
@@ -165,13 +172,23 @@ def synthesis(params: Params, latent: torch.Tensor,
     # the ToRGB outputs without their skips, summed up the resolutions at the end
     # in one op: nothing else reads an intermediate rgb
     ts = [to_rgb(out, latent[:, 1], params["to_rgb1"], None, blur_kernel=blur_kernel)]
+
+    def block(out, lat_a, lat_b, lat_rgb, n1, n2, p_up, p_conv, p_rgb):
+        out = styled_conv(out, lat_a, p_up, n1, upsample=True, blur_kernel=blur_kernel)
+        out = styled_conv(out, lat_b, p_conv, n2, blur_kernel=blur_kernel)
+        return out, to_rgb(out, lat_rgb, p_rgb, None, blur_kernel=blur_kernel)
+
+    if remat and torch.is_grad_enabled():
+        plain_block = block
+
+        def block(*args):
+            return torch.utils.checkpoint.checkpoint(plain_block, *args, use_reentrant=False)
+
     i = 1
     for idx, p_rgb in enumerate(params["to_rgbs"]):
-        out = styled_conv(out, latent[:, i], params["convs"][2 * idx], noise[1 + 2 * idx],
-                          upsample=True, blur_kernel=blur_kernel)
-        out = styled_conv(out, latent[:, i + 1], params["convs"][2 * idx + 1], noise[2 + 2 * idx],
-                          blur_kernel=blur_kernel)
-        ts.append(to_rgb(out, latent[:, i + 2], p_rgb, None, blur_kernel=blur_kernel))
+        out, t = block(out, latent[:, i], latent[:, i + 1], latent[:, i + 2], noise[1 + 2 * idx], noise[2 + 2 * idx],
+                       params["convs"][2 * idx], params["convs"][2 * idx + 1], p_rgb)
+        ts.append(t)
         i += 2
     return upsample2x_chain(ts, blur_kernel)
 
@@ -207,13 +224,14 @@ def generate(params: Params, styles: Sequence[torch.Tensor], cfg: ModelConfig, *
              noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
              input_is_latent: bool = False, inject_index: Optional[int] = None,
              truncation: float = 1.0,
-             truncation_latent: Optional[torch.Tensor] = None) -> torch.Tensor:
+             truncation_latent: Optional[torch.Tensor] = None, remat: bool = False) -> torch.Tensor:
     """Image [B, H, W, 3] from z or w styles (:func:`prepare_latent`: mixing,
-    truncation, w+), with the given noise maps or none."""
+    truncation, w+), with the given noise maps or none; ``remat`` as in
+    :func:`synthesis`."""
     latent = prepare_latent(params, styles, cfg, input_is_latent=input_is_latent,
                             inject_index=inject_index, truncation=truncation,
                             truncation_latent=truncation_latent)
-    return synthesis(params, latent, noise, blur_kernel=cfg.blur_kernel)
+    return synthesis(params, latent, noise, blur_kernel=cfg.blur_kernel, remat=remat)
 
 
 def mean_latent(params: Params, n: int, cfg: ModelConfig, generator: Optional[torch.Generator] = None,

@@ -23,32 +23,71 @@ from __future__ import annotations
 import math
 from typing import Dict, Sequence, Tuple
 
+from ..models.stylegan2 import channel_map
+from .upfirdn2d_cuda import adj_chain_split
+
 PEAK_F32 = 67e12        # FLOP/s, CUDA cores
 PEAK_TF32 = 495e12      # FLOP/s, tensor cores
 PEAK_BF16 = 989e12      # FLOP/s, tensor cores, dense
 PEAK_BYTES = 3.35e12    # B/s, HBM3
 CONV_RATE = max(PEAK_F32, PEAK_TF32 / 3)  # float32-accurate matrix product
 
-# The 256px main path: (C, H) of every launch of one solve step's forward.
-# blur4: output H of the forward (input H + 1, pads (1, 1)) = input H of its adjoint (pads (2, 2))
-BLUR4_SHAPES = ((512, 8), (512, 16), (512, 32), (512, 64), (256, 128), (128, 256))
-UPBLUR4_SHAPES = (4, 8, 16, 32, 64, 128)                                             # input H, C = 3
-# conv3x3_relu: (C, H, launches per forward); the backward's dx repeats each launch.
-CONV3X3_SHAPES = ((128, 128, 1), (256, 64, 2), (512, 32, 2), (512, 16, 3))
-SLICE1_H = 256
-LAUNCHES_PER_STEP = {"blur4": 12, "upblur4": 6, "upblur4_adj": 6, "conv3x3_relu": 16,
-                     "vgg_slice1_fwd": 1, "vgg_slice1_bwd": 1}
-# in bf16 the ToRGB skip chain is one launch each way (ops/upfirdn2d_cuda.py::upblur4_chain)
-CHAIN_LAUNCHES_BF16 = {"upblur4": 1, "upblur4_adj": 1}
+# The main path at ``img_size`` (StyleGAN2 config-f's channel map, LPIPS-VGG16 on the
+# image as it is): (C, H) of every launch of one solve step's forward.
+
+
+def blur4_shapes(img_size: int = 256) -> Tuple[Tuple[int, int], ...]:
+    """(C, H) of the upsample convs' blurs, r = 8 .. img_size: output H of the
+    forward (input H + 1, pads (1, 1)) = input H of its adjoint (pads (2, 2))."""
+    chans = channel_map()
+    return tuple((chans[1 << k], 1 << k) for k in range(3, int(math.log2(img_size)) + 1))
+
+
+def upblur4_shapes(img_size: int = 256) -> Tuple[int, ...]:
+    """Input H of the ToRGB skip upsamples, 4 .. img_size / 2 (C = 3)."""
+    return tuple(1 << k for k in range(2, int(math.log2(img_size))))
+
+
+def conv3x3_shapes(img_size: int = 256) -> Tuple[Tuple[int, int, int], ...]:
+    """LPIPS-VGG16's square convs: (C, H, launches per forward) at img_size / 2
+    .. img_size / 16; the backward's dx repeats each launch."""
+    return ((128, img_size // 2, 1), (256, img_size // 4, 2), (512, img_size // 8, 2), (512, img_size // 16, 3))
+
+
+def chain_levels(img_size: int = 256) -> int:
+    """Levels of the ToRGB skip chain: one an upsample block, log2(img_size) - 2."""
+    return int(math.log2(img_size)) - 2
+
+
+BLUR4_SHAPES = blur4_shapes()
+UPBLUR4_SHAPES = upblur4_shapes()
+CONV3X3_SHAPES = conv3x3_shapes()
+SLICE1_H = 256  # VGG slice 1 runs on the image
 BF16_SUFFIX = "_bf16"  # the name of a kernel's bfloat16 variant is its own + this
 
 
-def step_launches(dtype: str = "float32") -> Dict[str, int]:
-    """Launches of one solve step in ``dtype`` ("float32" | "bfloat16"), by the
-    name of the kernel variant that runs them."""
+def step_launches(dtype: str = "float32", img_size: int = 256, remat: bool = False,
+                  remat_lpips: bool = False) -> Dict[str, int]:
+    """Launches of one solve step in ``dtype`` ("float32" | "bfloat16") at
+    ``img_size``, by the name of the kernel variant that runs them.  A blur4
+    an upsample block forward and one in the backward; the skip chain a
+    fused ``upblur4`` a level each way in float32, and in bf16 one launch
+    forward and the cascade backward (``1 + adj_chain_split``: its widest
+    levels go alone first).  ``remat`` re-runs each block's forward blur4 in
+    the backward, ``remat_lpips`` LPIPS's forward kernels."""
+    n = chain_levels(img_size)
+    fwd_convs = sum(k for _, _, k in conv3x3_shapes(img_size))
+    launches = {"blur4": (3 if remat else 2) * n, "upblur4": n, "upblur4_adj": n,
+                "conv3x3_relu": (3 if remat_lpips else 2) * fwd_convs,
+                "vgg_slice1_fwd": 2 if remat_lpips else 1, "vgg_slice1_bwd": 1}
     if dtype != "bfloat16":
-        return dict(LAUNCHES_PER_STEP)
-    return {k + BF16_SUFFIX: CHAIN_LAUNCHES_BF16.get(k, v) for k, v in LAUNCHES_PER_STEP.items()}
+        return launches
+    # in bf16 the ToRGB skip chain is one launch each way (ops/upfirdn2d_cuda.py::upblur4_chain)
+    launches.update(upblur4=1, upblur4_adj=1 + adj_chain_split(4, 4, 3, n))
+    return {k + BF16_SUFFIX: v for k, v in launches.items()}
+
+
+LAUNCHES_PER_STEP = step_launches()
 
 # The 256px discriminator: (C, input size r) of its res blocks, each with two
 # blurs on its input width: pads (2, 2) before the 3x3 stride-2 conv (out r + 1)
@@ -142,13 +181,14 @@ def slice1_bwd(n: int, h: int, w: int, dtype: str = "float32") -> Dict[str, obje
     return _counts(flops, 1.0 * n * h * w * (64 + 64 + 3 + 3) + 9 * 64 * (3 + 64) + 64, "conv", dtype)
 
 
-def main_path(name: str, n: int, dtype: str = "float32") -> Sequence[Tuple[str, Dict[str, object]]]:
+def main_path(name: str, n: int, dtype: str = "float32",
+              img_size: int = 256) -> Sequence[Tuple[str, Dict[str, object]]]:
     """(shape label, counts) of every distinct launch shape of kernel ``name``
-    on the 256px main path at batch ``n`` in ``dtype``."""
+    on the main path at ``img_size`` at batch ``n`` in ``dtype``."""
     if name == "blur4":
-        return [(f"C{c}_H{h}", blur4(n, c, h, h, dtype=dtype)) for c, h in BLUR4_SHAPES]
+        return [(f"C{c}_H{h}", blur4(n, c, h, h, dtype=dtype)) for c, h in blur4_shapes(img_size)]
     if name == "blur4_adj":  # the backward's launches of blur4: H -> H + 1
-        return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2), dtype)) for c, h in BLUR4_SHAPES]
+        return [(f"C{c}_H{h}_adj", blur4(n, c, h + 1, h + 1, (2, 2), dtype)) for c, h in blur4_shapes(img_size)]
     if name in ("blur4_disc", "blur4_disc_study"):  # the discriminator's blurs and (``_adj``) their adjoints
         out = []
         for c, r in DISC_BLUR_SHAPES if name == "blur4_disc" else STUDY_DISC_BLUR_SHAPES:
@@ -158,22 +198,22 @@ def main_path(name: str, n: int, dtype: str = "float32") -> Sequence[Tuple[str, 
                     (f"D_C{c}_R{r}_p11_adj", blur4(n, c, r, r, (2, 2), dtype))]
         return out
     if name == "upblur4":  # fused with the ToRGB add, as the main path launches it
-        return [(f"C3_H{h}", upblur4(n, 3, h, h, fused=True, dtype=dtype)) for h in UPBLUR4_SHAPES]
+        return [(f"C3_H{h}", upblur4(n, 3, h, h, fused=True, dtype=dtype)) for h in upblur4_shapes(img_size)]
     if name == "upblur4_adj":
-        return [(f"C3_H{h}", upblur4_adj(n, 3, h, h, dtype)) for h in UPBLUR4_SHAPES]
+        return [(f"C3_H{h}", upblur4_adj(n, 3, h, h, dtype)) for h in upblur4_shapes(img_size)]
     if name in ("upblur4_chain", "upblur4_adj_chain"):  # the whole chain in one launch
-        h0, levels = UPBLUR4_SHAPES[0], len(UPBLUR4_SHAPES)
+        h0, levels = 4, chain_levels(img_size)
         fn = upblur4_chain if name == "upblur4_chain" else upblur4_adj_chain
         return [(f"C3_H{h0}-H{h0 << levels}", fn(n, 3, h0, levels, dtype))]
     if name == "conv3x3_relu":
-        return [(f"C{c}_H{h}", conv3x3(n, h, h, c, dtype)) for c, h, _ in CONV3X3_SHAPES]
+        return [(f"C{c}_H{h}", conv3x3(n, h, h, c, dtype)) for c, h, _ in conv3x3_shapes(img_size)]
     if name == "vgg_slice1_fwd":
-        return [(f"C3_H{SLICE1_H}", slice1_fwd(n, SLICE1_H, SLICE1_H, dtype))]
+        return [(f"C3_H{img_size}", slice1_fwd(n, img_size, img_size, dtype))]
     if name == "vgg_slice1_bwd":
-        return [(f"C3_H{SLICE1_H}", slice1_bwd(n, SLICE1_H, SLICE1_H, dtype))]
+        return [(f"C3_H{img_size}", slice1_bwd(n, img_size, img_size, dtype))]
     raise KeyError(name)
 
 
-def conv3x3_step_flops(chains: int) -> float:
+def conv3x3_step_flops(chains: int, img_size: int = 256) -> float:
     """Useful flops of all conv3x3_relu launches of one solve step (forward + dx)."""
-    return 2.0 * sum(k * conv3x3(chains, h, h, c)["flops"] for c, h, k in CONV3X3_SHAPES)
+    return 2.0 * sum(k * conv3x3(chains, h, h, c)["flops"] for c, h, k in conv3x3_shapes(img_size))

@@ -33,7 +33,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                at batch 2, launch-only forward and adjoint at batch 16 (summed
                under ``disc_`` keys).  Then the second derivative through the
                FIR kernels (R1's gradient of a gradient) against the plain
-               versions on the CPU.
+               versions on the CPU.  The launch rows run once more at the
+               1024px main path's shapes (StyleGAN2 config-f, LPIPS on the
+               1024^2 image: ``blur4`` up to C 32 x 1024^2, ``conv3x3_relu``
+               up to C 128 x 512^2, the slice at 1024^2, the skip chain over 8
+               levels) at batch 2, held the same way, each launch twice and the
+               two results bitwise equal.
 3. recovery -- planted keys recovered through the kernels on a tiny
                generator (32px, mse loss, 300 steps, 4 restarts, 3 samples).
 4. generate -- ``cli.generate`` at full width (256px, style_dim 512, n_mlp 8,
@@ -209,6 +214,19 @@ bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
     2, with the study's 64 px discriminator too; launch-only, plain and library
     times at batch 16 under ``disc_`` keys).
 3.  recovery in bf16: phase 3's tiny configuration and gates, ``dtype="bfloat16"``.
+5.  attribute_1024 -- the main path at 1024 px, full width (StyleGAN2
+    config-f from ``--random_init``, LPIPS-VGG16 on the 1024^2 image, key_len
+    64, shift 448): ``cli.generate`` writes 1024^2 PNGs; the perceptual solve
+    step alone at 4 and 8 chains in float32, float32 ``remat``, float32
+    ``remat`` + ``remat_lpips``, bf16 and bf16 ``remat``: peak memory, the
+    largest chain count the card holds (a line through the two peaks), the
+    median step by CUDA events, launches per step held to
+    ``ops/roofline.py::step_launches(dtype, 1024, remat, remat_lpips)``, the
+    step-1 losses of each checkpointed variant within 1e-6 relative of its
+    dtype's plain step and its peak below it; then ``cli.attribute`` (2 x 4
+    chains, 10 steps) in float32, float32 ``--remat`` and bf16 ``--remat``:
+    every kernel of its dtype launched, its launches outside the float32
+    renders and the targets' features ten solve steps', losses printed.
 5.  step16 -- the 16-chain 256px perceptual solve step at full width in the
     turns float32, bf16, bf16, float32 (CUDA events, median of 5 steps a
     turn), each dtype's peak memory, device-busy share and top device
@@ -236,6 +254,9 @@ bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
 Then it prints the card's name and power limit, one JSON line describing
 each kernel (its launches on every path above: ``launches`` is phase 5's for
 a float32 kernel and the bf16 ``cli.attribute`` run's for a ``_bf16`` one,
+``launches_1024_*`` the 1024px ``cli.attribute`` runs' and
+``launches_per_step_1024`` the 1024px solve steps', ``px1024_*`` the times,
+bounds and errors of the 1024px shapes at batch 2,
 ``launches_training`` phase 14's timed steps, ``launches_studies`` phase 16's
 three study runs, ``launches_capacity`` its capacity run, ``launches_evaluate``
 phase 17's ``cli.evaluate``, ``launches_parallel`` each rank's in phase 18's
@@ -428,8 +449,8 @@ def phase_kernels(torch, mods, disc_shapes):
     return per_kernel
 
 
-def launch_cases(torch, mods, n, rnd, act=None):
-    """Every main-path launch shape of every kernel at batch ``n``:
+def launch_cases(torch, mods, n, rnd, act=None, img_size=256):
+    """Every launch shape of every kernel on the main path at ``img_size`` at batch ``n``:
     (kernel, shape, kernel_fn, plain_fn, library_fn, counts, check), all on
     fixed inputs and without autograd.  ``library_fn`` is the PyTorch call
     that computes the same function; the port never calls it on the card.
@@ -437,7 +458,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
     mask of elements to compare or None).  ``act`` maps every activation input
     (not the float32 parameters) after it is drawn: ``t.bfloat16()`` gives the
     bf16 variants' cases (the library call in bf16 too), and the bound is
-    then counted in bf16."""
+    then counted in bf16.  The discriminator's rows come with the 256px path only."""
     import torch.nn.functional as F
 
     up_cuda, vgg_cuda, slice_cuda, upf, roof = mods
@@ -446,7 +467,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
     bf16_route = act is not None  # the bf16 cases and their float32 references: the chain rows too
     # the discriminator's rows: float32 at batch 16 (batch 2 is held through autograd in phase 2's
     # first part); bf16 at both, at batch 2 the study's discriminator (64 px, channel_max 128) too
-    disc = n == 16 or bf16_route
+    disc = (n == 16 or bf16_route) and img_size == 256
     if act is None:
         act = lambda t: t  # noqa: E731
     dt = act(torch.zeros(1, device="cuda")).dtype  # the kernels' dtype
@@ -462,7 +483,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
             x0 = torch.zeros_like(ct).requires_grad_(True)
             return torch.autograd.grad(vgg_cuda.conv3x3_plain(x0, w), x0, ct)[0]
 
-    for c, h in roof.BLUR4_SHAPES:
+    for c, h in roof.blur4_shapes(img_size):
         x = arnd(n, h + 1, h + 1, c)
         wl = torch.outer(kt, kt).flip(0, 1).expand(c, 1, 4, 4).contiguous().to(dt)
         kf = lambda x=x: up_cuda.blur4_launch(x, k1[::-1], k1[::-1], (1, 1), (1, 1))
@@ -470,7 +491,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
         cases.append(("blur4", f"C{c}_H{h}", kf, pf,
                       lambda x=x, wl=wl, c=c: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=1, groups=c),
                       roof.blur4(n, c, h, h, dtype=dname), lambda kf=kf, pf=pf: (kf(), pf(), None)))
-    for c, h in roof.BLUR4_SHAPES:
+    for c, h in roof.blur4_shapes(img_size):
         # the backward's launch: the cotangent [n, h, h, c] through the same kernel with
         # unflipped taps and pads (3 - 1, 3 - 1); blur4_plain flips the taps it is given
         x = arnd(n, h, h, c)
@@ -504,7 +525,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
                               lambda x=x, wl=wl, c=c, q=q: F.conv2d(x.permute(0, 3, 1, 2), wl, padding=q, groups=c),
                               counts[label], lambda kf=kf, pf=pf: (kf(), pf(), None)))
     wl3 = torch.outer(kt, kt).expand(3, 1, 4, 4).contiguous().to(dt)
-    for h in roof.UPBLUR4_SHAPES:
+    for h in roof.upblur4_shapes(img_size):
         x, rgb = arnd(n, h, h, 3), arnd(n, 2 * h, 2 * h, 3)
         kf = lambda x=x, rgb=rgb: up_cuda.upblur4_launch(x, k1, rgb)
         pf = lambda x=x, rgb=rgb: up_cuda.upblur4_add_plain(rgb, x, k1)
@@ -512,7 +533,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
                       lambda x=x, rgb=rgb: F.conv_transpose2d(x.permute(0, 3, 1, 2), wl3, stride=2, padding=1,
                                                               groups=3) + rgb.permute(0, 3, 1, 2),
                       roof.upblur4(n, 3, h, h, fused=True, dtype=dname), lambda kf=kf, pf=pf: (kf(), pf(), None)))
-    for h in roof.UPBLUR4_SHAPES:
+    for h in roof.upblur4_shapes(img_size):
         g = arnd(n, 2 * h, 2 * h, 3)
 
         def plain_adjoint(g=g, h=h):
@@ -526,8 +547,8 @@ def launch_cases(torch, mods, n, rnd, act=None):
                       lambda g=g: F.conv2d(g.permute(0, 3, 1, 2), wl3, stride=2, padding=1, groups=3),
                       roof.upblur4_adj(n, 3, h, h, dname), lambda kf=kf, pa=plain_adjoint: (kf(), pa(), None)))
     if bf16_route:
-        cases += chain_cases(torch, up_cuda, roof, n, arnd, k1, wl3, dt, dname)
-    for c, h, _ in roof.CONV3X3_SHAPES:
+        cases += chain_cases(torch, up_cuda, roof, n, arnd, k1, wl3, dt, dname, img_size)
+    for c, h, _ in roof.conv3x3_shapes(img_size):
         w, b = rnd(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5), rnd(c, scale=0.1)
         x = arnd(n, h, h, c)
         # the adjoint taps (spatial flip, in/out swapped) for the TIMES of the plain and the
@@ -546,7 +567,7 @@ def launch_cases(torch, mods, n, rnd, act=None):
                       roof.conv3x3(n, h, h, c, dname), lambda kd=kd, x=x, w=w: (kd(), adjoint(x, w), None)))
     ws = (rnd(3, 3, 3, 64, scale=(2.0 / 27) ** 0.5), rnd(64, scale=0.1),
           rnd(3, 3, 64, 64, scale=(2.0 / 576) ** 0.5), rnd(64, scale=0.1))
-    hs = roof.SLICE1_H
+    hs = img_size  # VGG slice 1 runs on the image
     x, cot = arnd(n, hs, hs, 3), arnd(n, hs, hs, 64)
     kf, pf = (lambda: slice_cuda.slice1_forward_launch(x, *ws)), (lambda: slice_cuda.vgg_slice1_plain(x, *ws))
     # the library call: two cuDNN convs with their ReLUs in the kernels' dtype (NCHW views of
@@ -586,19 +607,20 @@ def launch_cases(torch, mods, n, rnd, act=None):
     return cases
 
 
-def chain_cases(torch, up_cuda, roof, n, arnd, k1, wl3, dt, dname):
-    """The bf16 ToRGB skip chain of the 256px main path as a synthesis runs it, one
-    launch each way (``chain_`` rows): ``upblur4_bf16`` over t_0 .. t_6 and
-    ``upblur4_adj_bf16`` from the image's cotangent to g_0 .. g_5 (flattened and
-    concatenated), each held bit-equal to the six chained one-level launches and
+def chain_cases(torch, up_cuda, roof, n, arnd, k1, wl3, dt, dname, img_size=256):
+    """The bf16 ToRGB skip chain of the main path at ``img_size`` as a synthesis
+    runs it, one launch each way (``chain_`` rows; at 256 px: ``upblur4_bf16`` over
+    t_0 .. t_6 and ``upblur4_adj_bf16`` from the image's cotangent to g_0 .. g_5,
+    flattened and concatenated; at 1024 px the cascade's two widest levels go as
+    one-level launches first), each held bit-equal to the chained one-level launches and
     against the plain chain; the library call chains ``F.conv_transpose2d`` + add,
     or the depthwise strided ``F.conv2d``.  In float32 (the references of the bf16
     rows) the kernel side is the six float32 launches a level."""
     import torch.nn.functional as F
 
-    (label, fwd_counts), = roof.main_path("upblur4_chain", n, dname)
-    (_, adj_counts), = roof.main_path("upblur4_adj_chain", n, dname)
-    h0, levels = roof.UPBLUR4_SHAPES[0], len(roof.UPBLUR4_SHAPES)
+    (label, fwd_counts), = roof.main_path("upblur4_chain", n, dname, img_size)
+    (_, adj_counts), = roof.main_path("upblur4_adj_chain", n, dname, img_size)
+    h0, levels = 4, roof.chain_levels(img_size)
     ts = [arnd(n, h0 << k, h0 << k, 3) for k in range(levels + 1)]
     g = arnd(n, h0 << levels, h0 << levels, 3)
     bf16 = dt == torch.bfloat16
@@ -671,32 +693,50 @@ def phase_launch_times(torch, mods, per_kernel):
     float32 version only in print: its two ReLU masks, recomputed from values
     rounded to bf16 and from float32 ones, differ by whole terms wherever a
     pre-activation is within rounding of zero, and at the main path's shapes
-    that is most 5x5 neighbourhoods."""
+    that is most 5x5 neighbourhoods.
+
+    Each dtype also runs the 1024px main path's shapes (StyleGAN2 config-f,
+    LPIPS-VGG16 on the 1024^2 image) at batch 2, held the same way, and every
+    launch there twice: the two results must be bitwise equal (``torch.equal``:
+    ``--remat`` runs each forward kernel again in the backward).  Their sums
+    go under ``px1024_`` keys."""
     roof = mods[-1]
     bf = lambda t: t.bfloat16()  # noqa: E731
     for dtype in ("float32", "bfloat16"):
-        for n in (2, 16):
+        for n, img in ((2, 256), (16, 256), (2, 1024)):
             def rnd_from(seed):
+                if img == 1024:  # drawn on the card: the host would take tens of seconds for these sizes
+                    g = torch.Generator(device="cuda").manual_seed(seed)
+                    return lambda *shape, scale=1.0: torch.randn(shape, generator=g, device="cuda") * scale
                 g = torch.Generator().manual_seed(seed)
                 return lambda *shape, scale=1.0: (torch.randn(shape, generator=g) * scale).to("cuda")
 
+            seed = n + (1000 if img == 1024 else 0)
             with torch.no_grad():
                 if dtype == "float32":
-                    cases = launch_cases(torch, mods, n, rnd_from(100 + n))
+                    cases = launch_cases(torch, mods, n, rnd_from(100 + seed), img_size=img)
                     refs = [None] * len(cases)
                 else:
                     # the same draws twice: the bf16 cases, and float32 ones on the bf16-rounded inputs
-                    cases = launch_cases(torch, mods, n, rnd_from(200 + n), act=bf)
-                    refs = launch_cases(torch, mods, n, rnd_from(200 + n), act=lambda t: t.bfloat16().float())
+                    cases = launch_cases(torch, mods, n, rnd_from(200 + seed), act=bf, img_size=img)
+                    refs = launch_cases(torch, mods, n, rnd_from(200 + seed),
+                                        act=lambda t: t.bfloat16().float(), img_size=img)
                 for (name, shape, kfn, pfn, lfn, counts, chk), ref in zip(cases, refs):
                     kname = name + (BF16 if dtype == "bfloat16" else "")
-                    line = {"phase": "launch", "kernel": kname, "shape": shape, "batch": n,
+                    line = {"phase": "launch", "kernel": kname, "shape": shape, "batch": n, "img_size": img,
                             "ms": median_ms(torch, kfn), "plain_ms": median_ms(torch, pfn),
                             "library_ms": median_ms(torch, lfn), **counts}
                     if shape.startswith("chain_"):  # the launches' host work hides the device time: both
                         line["back_to_back_ms"] = back_to_back_ms(torch, kfn)
                         line["device_ms"] = device_ms_per_call(torch, kfn, calls=10)
                     line["share_of_bound"] = line["bound_ms"] / line["ms"]
+                    if img == 1024:  # two launches on one input: bitwise the same result
+                        a, b = kfn(), kfn()
+                        a, b = (a, b) if torch.is_tensor(a) else (torch.cat([t.flatten() for t in a]),
+                                                                   torch.cat([t.flatten() for t in b]))
+                        line["bitwise_deterministic"] = bool(torch.equal(a, b))
+                        check(line["bitwise_deterministic"], f"{kname} {shape} batch {n}: two launches differ")
+                        del a, b
                     if chk is not None:
                         k, p, keep = chk()
                         torch.cuda.synchronize()
@@ -722,22 +762,28 @@ def phase_launch_times(torch, mods, per_kernel):
                             line["max_abs_float32_plain"] = rp.abs().max().item()
                             check(name == "vgg_slice1_bwd" or err32 < BF16_TOL * line["max_abs_float32_plain"],
                                   f"{kname} {shape} batch {n}: {err32:.3e} from the float32 plain version")
+                            del rk, rp, rkeep, rd
                         line["max_abs_err"] = err
+                        del k, p, keep, diff
                     emit(line)
                     agg = per_kernel.setdefault(("launch", kname), {"bound_by": {}, "err": 0.0})
-                    agg["err"] = max(agg["err"], line.get("max_abs_err", 0.0))
-                    if n == 16:
+                    if img == 1024:
+                        agg["px1024_err"] = max(agg.get("px1024_err", 0.0), line.get("max_abs_err", 0.0))
+                    else:
+                        agg["err"] = max(agg["err"], line.get("max_abs_err", 0.0))
+                    if n == 16 or img == 1024:
                         adjoint = shape.endswith(("_dx", "_adj"))
                         prefix = ("disc_" if shape.startswith("D_") else "") + ("adjoint_" if adjoint else "")
                         if shape.startswith("chain_"):  # the bf16 skip chain in one launch
                             prefix = "chain_"
-                            agg["chain_back_to_back_ms"] = line["back_to_back_ms"]
-                            agg["chain_device_ms"] = line["device_ms"]
-                            agg["chain_bound_by"] = line["bound_by"]
+                            for key in ("back_to_back_ms", "device_ms", "bound_by"):
+                                agg[("px1024_" if img == 1024 else "") + "chain_" + key] = line[key]
+                        if img == 1024:
+                            prefix = "px1024_" + prefix
                         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                             agg[prefix + key] = agg.get(prefix + key, 0.0) + line[key]
-                        if not prefix:
-                            by = agg["bound_by"]
+                        if prefix in ("", "px1024_"):
+                            by = agg.setdefault(prefix + "bound_by", {})
                             by[line["bound_by"]] = by.get(line["bound_by"], 0.0) + line["bound_ms"]
             del cases, refs
             torch.cuda.empty_cache()
@@ -1020,6 +1066,158 @@ def phase_attribute_bf16(torch, port, gpu, f32_line):
           "float32_max_memory_allocated_bytes": f32_line["max_memory_allocated_bytes"],
           "losses": r.losses, "bit_acc": r.bit_accs, "launches": counts, "launches_per_step": per_step, "gpu": gpu})
     return counts
+
+
+FULL_1024 = ["--device", "cuda", "--random_init", "--img_size", "1024", "--key_len", "64", "--shift", "448"]
+# (dtype, remat) of the 1024px cli.attribute runs; (dtype, remat, remat_lpips) of the direct solve steps
+RUNS_1024 = (("float32", False), ("float32", True), ("bfloat16", True))
+STEPS_1024 = (("float32", False, False), ("float32", True, False), ("float32", True, True),
+              ("bfloat16", False, False), ("bfloat16", True, False))
+REMAT_LOSS_RTOL = 1e-6  # step-1 losses with and without gradient checkpointing
+
+
+def feature_launches(roof, dtype: str, img_size: int) -> dict:
+    """Launches of one LPIPS feature extraction without a backward (the targets')."""
+    sfx = BF16 if dtype == "bfloat16" else ""
+    return {"conv3x3_relu" + sfx: sum(k for _, _, k in roof.conv3x3_shapes(img_size)), "vgg_slice1_fwd" + sfx: 1}
+
+
+def rel_diff(torch, a, b) -> float:
+    return float(((a.float() - b.float()).abs() / b.float().abs().clamp_min(1e-30)).max())
+
+
+def phase_attribute_1024(torch, port, gpu):
+    """The main path at 1024 px: StyleGAN2 config-f (style_dim 512, n_mlp 8,
+    channel_multiplier 2, channel_max 512, 18 W+ slots) from ``--random_init``,
+    LPIPS-VGG16 on the 1024^2 image.  ``cli.generate`` writes its PNGs; the
+    perceptual solve step alone at 4 and 8 chains for each of ``STEPS_1024``
+    (peak memory of a step after a warm-up one, the largest chain count that
+    fits the card by a line through the two peaks, the median of 3 steps by
+    CUDA events, its launches per step held to ``roof.step_launches(dtype,
+    1024, remat, remat_lpips)``; the step-1 losses of every checkpointed
+    variant within ``REMAT_LOSS_RTOL`` of its dtype's plain step, a lower peak
+    with ``remat``); then ``cli.attribute`` for each of ``RUNS_1024`` (2 x 4
+    chains, 10 steps): every kernel of its dtype launched, and its launches
+    outside the float32 renders and the targets' features ten solve steps'."""
+    C, pl, attr, cuda_mod, roof = port["config"], port["pipeline"], port["attribute"], port["_cuda"], port["roof"]
+    from PIL import Image
+    import numpy as np
+
+    t0 = time.time()
+    save = os.path.join(OUT, "generate_1024")
+    rc = port["cli_generate"].main(FULL_1024 + ["--sample_size", "2", "--save_dir", save])
+    check(rc == 0, f"cli.generate at 1024 px returned {rc}")
+    for folder in ("original", "watermarked"):
+        d = [os.path.join(dp, f) for dp, _, fs in os.walk(save) for f in fs
+             if f.endswith(".png") and os.path.basename(dp) == folder]
+        check(len(d) == 2, f"1024 px {folder}: {len(d)} PNGs")
+        for f in d:
+            a = np.asarray(Image.open(f))
+            check(a.shape == (1024, 1024, 3) and a.std() > 1.0, f"{f}: shape {a.shape}, std {a.std():.2f}")
+    generate_seconds = time.time() - t0
+
+    mcfg = C.ModelConfig(img_size=1024)
+    pipe = pl.build_pipeline(mcfg, C.FingerprintConfig(key_len=64, shift=448),
+                             generator=torch.Generator().manual_seed(0))
+    targets = torch.clamp(pl.generate_fingerprinted(pipe, 2, torch.Generator().manual_seed(1))[0], -1.0, 1.0)
+    acfg = C.AttributionConfig(steps=10, n_starts=4, loss="perceptual")
+    alpha0 = torch.as_tensor(port["lhs"].lhs_alpha_init_batch(2, 4, pipe.basis.sigma_rest,
+                                                              torch.Generator().manual_seed(2)),
+                             dtype=torch.float32).cuda()
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    steps = {}
+    first = {}  # (dtype, tag) -> the step-1 and step-2 losses at 8 chains
+    for dtype, remat, remat_lpips in STEPS_1024:
+        tag = dtype + ("_remat" if remat else "") + ("_lpips" if remat_lpips else "")
+        rec = {"dtype": dtype, "remat": remat, "remat_lpips": remat_lpips}
+        for chains in (4, 8):
+            s_ = chains // 4
+            feats, _ = attr._targets_for_loss(pipe.lpips_params, targets[:s_], acfg, dtype)
+            step = attr.make_attribution_step(pipe.gen_params, pipe.lpips_params, pipe.basis, pipe.noise, mcfg,
+                                              acfg, feats, None, dtype=dtype, remat=remat,
+                                              remat_lpips=remat_lpips)[0]
+            holder = {"state": attr.init_state(alpha0[:s_], torch.zeros((s_, 4, 64), device="cuda"))}
+
+            def one():
+                holder["state"], per = step(holder["state"])
+                return per
+
+            torch.cuda.synchronize()
+            cuda_mod.reset_launches()
+            per1 = one()  # warm-up: the weight packings are made here
+            torch.cuda.synchronize()
+            counts = cuda_mod.launch_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            per2 = one()
+            torch.cuda.synchronize()
+            rec[f"peak_bytes_{chains}_chains"] = torch.cuda.max_memory_allocated()
+            check(bool(torch.isfinite(per1).all() and torch.isfinite(per2).all()), f"{tag}: non-finite loss")
+            if chains == 8:
+                want = roof.step_launches(dtype, 1024, remat, remat_lpips)
+                other = "float32" if dtype == "bfloat16" else "bfloat16"
+                check(of_dtype(counts, dtype) == want and not any(of_dtype(counts, other).values()),
+                      f"1024 px {tag} step launches {counts}, expected {want}")
+                rec["launches_per_step"] = of_dtype(counts, dtype)
+                rec["ms"] = median_ms(torch, one, reps=3, warmup=0)
+                first[tag] = (per1.detach(), per2.detach())
+            del step, holder, feats, per1, per2
+            torch.cuda.empty_cache()
+        p4, p8 = rec["peak_bytes_4_chains"], rec["peak_bytes_8_chains"]
+        per_chain = (p8 - p4) / 4
+        rec.update(bytes_per_chain=per_chain, fixed_bytes=p4 - 4 * per_chain, capacity_bytes=capacity,
+                   max_chains=int((capacity - (p4 - 4 * per_chain)) // per_chain) if per_chain > 0 else None,
+                   chain_steps_per_s=8e3 / rec["ms"])
+        steps[tag] = rec
+    for tag, (a1, a2) in first.items():
+        base = tag.split("_")[0]
+        if tag == base:
+            continue
+        b1, b2 = first[base]
+        steps[tag]["step1_loss_rel_diff"] = rel_diff(torch, a1, b1)
+        steps[tag]["step2_loss_rel_diff"] = rel_diff(torch, a2, b2)
+        check(steps[tag]["step1_loss_rel_diff"] <= REMAT_LOSS_RTOL,
+              f"{tag}: step-1 losses {steps[tag]['step1_loss_rel_diff']:.2e} from {base}'s")
+        peak, base_peak = steps[tag]["peak_bytes_8_chains"], steps[base]["peak_bytes_8_chains"]
+        check(peak < base_peak, f"{tag}: peak {peak} not below {base}'s {base_peak}")
+    emit({"phase": "attribute_1024_steps", "img_size": 1024, "chains": 8, "loss": "perceptual", "steps": steps,
+          "gpu": gpu})
+    del pipe, targets, alpha0
+    torch.cuda.empty_cache()
+
+    runs, launched = {}, {}
+    for dtype, remat in RUNS_1024:
+        tag = dtype + ("_remat" if remat else "")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_mod.reset_launches()
+        with renders_counted(port) as renders:
+            r = port["cli_attribute"].run(FULL_1024 + ["--loss", "perceptual", "--sample_size", "2", "--n", "4",
+                                                       "--steps", "10", "--dtype", dtype,
+                                                       "--save_dir", os.path.join(OUT, "attribute_1024_" + tag)]
+                                          + (["--remat"] if remat else []))
+        counts = cuda_mod.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(os.path.exists(os.path.join(r.run_dir, "result.txt")) and len(r.bit_accs) == 2
+              and all(v == v and abs(v) < float("inf") for v in r.losses), f"1024 px {tag}: {r.losses}")
+        if dtype == "bfloat16":
+            check_bf16_solve(counts, renders, f"cli.attribute 1024 px {tag}")
+        else:
+            check_all_launched(counts, f"cli.attribute 1024 px {tag}")
+        feat = feature_launches(roof, dtype, 1024)
+        solve = {k: v - renders[k] - feat.get(k, 0) for k, v in of_dtype(counts, dtype).items()}
+        want = {k: 10 * v for k, v in roof.step_launches(dtype, 1024, remat).items()}
+        check(solve == want, f"1024 px {tag}: solve launches {solve}, expected {want}")
+        launched[tag] = counts
+        runs[tag] = {"solve_seconds": r.solve_seconds, "chain_steps_per_s": 10 * r.chains / r.solve_seconds,
+                     "max_memory_allocated_bytes": peak, "losses": r.losses, "bit_acc": r.bit_accs,
+                     "launches": counts, "solve_launches": solve}
+    runs["float32_remat"]["loss_rel_diff_vs_float32"] = max(
+        abs(a - b) / abs(b) for a, b in zip(runs["float32_remat"]["losses"], runs["float32"]["losses"]))
+    emit({"phase": "attribute_1024", "img_size": 1024, "style_dim": 512, "n_mlp": 8, "channel_max": 512,
+          "loss": "perceptual", "samples": 2, "restarts": 4, "steps": 10, "runs": runs,
+          "generate_seconds": generate_seconds, "seconds": time.time() - t0, "gpu": gpu})
+    return launched, {tag: rec["launches_per_step"] for tag, rec in steps.items()}
 
 
 def phase_attacks(torch, port):
@@ -2646,6 +2844,9 @@ def main() -> int:
     per_step.update(phase_step16(torch, port, gpu))
     bf16_counts = phase_attribute_bf16(torch, port, gpu, f32_line)
     emit({"phase": "bf16_paths_done", "seconds": time.time() - t0})
+    t0 = time.time()
+    counts_1024, per_step_1024 = phase_attribute_1024(torch, port, gpu)
+    emit({"phase": "attribute_1024_done", "seconds": time.time() - t0})
     phase_attacks(torch, port)
     phase_robust_recovery(torch, port)
     attacked_counts = phase_attacked_attribute(torch, port, gpu)
@@ -2700,10 +2901,19 @@ def main() -> int:
         # the six shapes summed under ``per_level_``)
         times = {key: launch[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         times["bound_by"] = max(launch["bound_by"], key=launch["bound_by"].get)
+        # the 1024px main path's shapes at batch 2, summed likewise (its skip chain's launch alone)
+        px = {"px1024_" + key: launch["px1024_" + key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        px["px1024_bound_by"] = max(launch["px1024_bound_by"], key=launch["px1024_bound_by"].get)
+        px["px1024_max_abs_err"] = launch["px1024_err"]
         if "chain_ms" in launch:
             times = {**{"per_level_" + key: v for key, v in times.items()},
                      **{key: launch["chain_" + key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                                 "bound_by", "back_to_back_ms", "device_ms")}}
+            px = {**{k.replace("px1024_", "px1024_per_level_"): v for k, v in px.items()},
+                  **{"px1024_" + key: launch["px1024_chain_" + key]
+                     for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by", "back_to_back_ms",
+                                 "device_ms")}}
+        px["px1024_bitwise_deterministic"] = True  # phase 2 ran every 1024px launch twice and compared
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PORT}/{k.source}", "replaces": k.replaces,
             # the main path of a _bf16 kernel is cli.attribute --dtype bfloat16
@@ -2719,11 +2929,16 @@ def main() -> int:
             "launches_capacity": capacity_counts[name],
             "launches_evaluate": evaluate_counts[name],
             "launches_parallel": [c[name] for c in parallel_counts],
+            # the 1024px cli.attribute runs (float32 without and with --remat, bf16 with it), and a
+            # solve step's launches there
+            **{"launches_1024_" + tag: c[name] for tag, c in counts_1024.items()},
+            "launches_per_step_1024": {tag: n[name] for tag, n in per_step_1024.items() if name in n},
             "max_abs_err": err, **times, "batch": 16,
             "launches_per_step": per_step[name],
             # the adjoint launches of the same kernel (blur4 `_adj`, conv3x3_relu `_dx`) and blur4 at
             # the discriminator's shapes (`disc_`, forward and `disc_adjoint_`), summed likewise
-            **{k: v for k, v in launch.items() if k.startswith(("adjoint_", "disc_"))},
+            **{k: v for k, v in launch.items() if k.startswith(("adjoint_", "disc_"))}, **px,
+            **{k: v for k, v in launch.items() if k.startswith("px1024_adjoint_")},
         })
     print(gpu, flush=True)
     emit({"kernels": kernels})

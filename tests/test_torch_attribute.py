@@ -213,15 +213,24 @@ def test_cli_attribute_writes_reference_layout(tmp_path):
     assert all(np.isfinite(r.losses))
 
 
-def test_cli_refuses_unported_flags(tmp_path):
-    # --dtype bfloat16 is ported: a 2-step bf16 run completes and saves its dtype (a resume takes it)
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch):
+    # --dtype bfloat16 and --remat are ported: a 2-step bf16 run gradient-checkpoints its solve, completes
+    # and saves both (a resume takes them)
+    solve, remats = attr.attribute, []
+
+    def spy(*args, **kwargs):
+        remats.append(kwargs.get("remat"))
+        return solve(*args, **kwargs)
+
+    monkeypatch.setattr(attr, "attribute", spy)
     r = cli_attribute.run([
         "--device", "cpu", "--random_init", "--img_size", "16", "--style_dim", "32", "--n_mlp", "2",
         "--channel_max", "32", "--key_len", "8", "--shift", "16", "--loss", "perceptual",
-        "--sample_size", "1", "--n", "2", "--steps", "2", "--dtype", "bfloat16", "--save_dir", str(tmp_path),
+        "--sample_size", "1", "--n", "2", "--steps", "2", "--dtype", "bfloat16", "--remat", "--save_dir", str(tmp_path),
     ])
     assert os.path.exists(os.path.join(r.run_dir, "result.txt")) and all(np.isfinite(r.losses))
-    assert json.load(open(os.path.join(r.run_dir, "attribution_state.json")))["config"]["run"]["dtype"] == "bfloat16"
+    saved = json.load(open(os.path.join(r.run_dir, "attribution_state.json")))["config"]["run"]
+    assert saved["dtype"] == "bfloat16" and saved["remat"] is True and remats == [True]
     with pytest.raises(SystemExit):
         cli_attribute.run(["--device", "cpu", "--random_init", "--dtype", "float16"])
     # BigGAN is ported; the encoder that seeds --init encoder renders StyleGAN2 only

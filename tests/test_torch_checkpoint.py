@@ -87,10 +87,18 @@ def _result(run_dir):
     return open(os.path.join(run_dir, "result.txt")).read()
 
 
-def test_cli_run_cut_after_a_chunk_and_resumed_gives_the_same_result(tmp_path):
+def test_cli_run_cut_after_a_chunk_and_resumed_gives_the_same_result(tmp_path, monkeypatch):
     """Three samples in chunks of one, attacked, attack-aware, pruned, polished,
     restarts in chunks of two.  The cut run is the whole run's directory with
-    its state set back to the end of the first chunk."""
+    its state set back to the end of the first chunk; the resumed run keeps
+    the saved ``remat`` (off) over a ``--remat`` flag."""
+    solve, remats = cli_attribute.attr.attribute, []
+
+    def spy(*args, **kwargs):
+        remats.append(kwargs.get("remat"))
+        return solve(*args, **kwargs)
+
+    monkeypatch.setattr(cli_attribute.attr, "attribute", spy)
     flags = ["--sample_size", "3", "--chunk_samples", "1", "--chunk_starts", "2", "--augmentation", "Blur",
              "--blur_sigma", "1.0", "--attack_aware", "--prune_starts", "1", "--polish_sweeps", "1"]
     whole = cli_attribute.run(TINY + flags + ["--save_dir", str(tmp_path / "whole")])
@@ -109,8 +117,9 @@ def test_cli_run_cut_after_a_chunk_and_resumed_gives_the_same_result(tmp_path):
     state.save_state(cut, st, {k: (v[:1] if v.ndim else v) for k, v in arrays.items()})
     # the saved config is authoritative: these other flags are ignored
     resumed = cli_attribute.run(["--device", "cpu", "--random_init", "--resume", cut, "--steps", "1",
-                                 "--chunk_samples", "1", "--chunk_starts", "2"])
+                                 "--chunk_samples", "1", "--chunk_starts", "2", "--remat"])
     assert resumed.run_dir == cut and len(resumed.losses) == 2
+    assert remats == [False] * 10  # 3 + 2 sample chunks of 2 restart chunks each
     assert _result(cut) == _result(whole.run_dir)
     assert resumed.bit_accs == whole.bit_accs and resumed.losses == whole.losses[1:]
     _, arrays2 = state.load_state(cut)

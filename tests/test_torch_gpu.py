@@ -751,3 +751,39 @@ def test_train_step_matches_the_cpu(cuda):
                     assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(b.abs().max().item(), 1e-12)
     finally:
         torch.backends.mkldnn.enabled = mkldnn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_synthesis_on_the_card(cuda, dtype, monkeypatch):
+    """A 64px synthesis gradient-checkpointed on the card, cuDNN held to its
+    deterministic algorithms (with the default ones two float32 runs of one
+    input differ in rounding): the image bitwise the plain one (the same
+    forward kernels, each bitwise deterministic), the latent's gradient within
+    1e-5 of its scale of the plain one in float32 and within BF16_TOL in bf16;
+    each block's forward blur4 launched once more in the backward, the skip
+    chain's launches as without."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.config import ModelConfig
+    from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.models import stylegan2 as sg2
+
+    cfg = ModelConfig(img_size=64, style_dim=64, n_mlp=2, channel_max=64)
+    params = sg2.init_generator_params(cfg, torch.Generator().manual_seed(0), cuda)
+    lat = _rand(2, cfg.n_latent, 64, seed=1).to(cuda, dtype)
+    cot = _rand(2, 64, 64, 3, seed=2).to(cuda, dtype)
+    out = {}
+    for remat in (False, True):
+        w = lat.clone().requires_grad_(True)
+        _cuda.reset_launches()
+        img = sg2.synthesis(params, w, params["noises"], remat=remat)
+        (g,) = torch.autograd.grad(img, w, cot)
+        torch.cuda.synchronize()
+        out[remat] = (img.detach(), g, {k: v for k, v in _cuda.launch_counts().items() if v})
+    (img0, g0, n0), (img1, g1, n1) = out[False], out[True]
+    assert torch.equal(img0, img1)
+    if dtype == torch.float32:
+        assert (g1 - g0).abs().max().item() <= 1e-5 * g0.abs().max().item()
+    else:
+        _close_bf16(g1, g0)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    blocks = len(params["to_rgbs"])
+    assert n1 == {**n0, "blur4" + sfx: n0["blur4" + sfx] + blocks} and n0["blur4" + sfx] == 2 * blocks

@@ -280,9 +280,18 @@ MA_FLAGS = ["--device", "cpu", "--random_init", "--img_size", "16", "--style_dim
             "--channel_max", "16", "--key_len", "4", "--shift", "12", "--loss", "mse", "--n", "2", "--steps", "2"]
 
 
-def test_cli_model_attribute_self_test_and_images(tmp_path, capsys):
+def test_cli_model_attribute_self_test_and_images(tmp_path, capsys, monkeypatch):
     out = tmp_path / "ma.json"
-    rec = cli_ma.run(MA_FLAGS + ["--sample_size", "2", "--calibrate", "1", "--no_clip_targets", "--out", str(out)])
+    solve, remats = cli_ma.attr.attribute, []
+
+    def spy(*args, **kwargs):
+        remats.append(kwargs.get("remat"))
+        return solve(*args, **kwargs)
+
+    monkeypatch.setattr(cli_ma.attr, "attribute", spy)
+    rec = cli_ma.run(MA_FLAGS + ["--sample_size", "2", "--calibrate", "1", "--no_clip_targets", "--remat",
+                                 "--out", str(out)])
+    assert remats == [True] * 4  # --remat reaches the calibration's and the registry's solves, two models each
     assert json.loads(out.read_text()) == rec
     assert rec["models"] == ["random_a", "random_b"] and np.asarray(rec["loss_matrix"]).shape == (2, 2)
     assert rec["open_set_threshold"] is not None and 0.0 <= rec["self_test_accuracy"] <= 1.0

@@ -2,7 +2,8 @@
 ``parallel/`` on a 2-device slice of the 8-device CPU platform that
 ``tests/conftest.py`` sets up: ``attribute_on_mesh`` alone, under
 ``chunk_starts`` through ``attribute_chunked``'s ``solve_fn`` and on a 1 x 2
-mesh (the model axis, ``shard_model=True``), ``generate_on_mesh``, three
+mesh (the model axis, ``shard_model=True``, also with ``remat``),
+``generate_on_mesh``, three
 data-parallel training steps; a 1 x 2 synthesis and its gradient against the
 unsharded port; the engine on the data mesh against the one-device engine;
 and the rules of ``make_mesh`` and the divisibility errors, which need no ranks.
@@ -72,10 +73,10 @@ def _states_equal(mesh, state) -> bool:
     return bool((every == every[0]).all())
 
 
-def _tp_synthesis(params, pipe, wx, cot):
+def _tp_synthesis(params, pipe, wx, cot, remat=False):
     """Images of latents ``wx`` and the gradient of <images, cot> in them."""
     w = wx.clone().requires_grad_(True)
-    imgs = sg2.synthesis(params, w[:, None].expand(-1, pipe.mcfg.n_latent, -1), pipe.noise)
+    imgs = sg2.synthesis(params, w[:, None].expand(-1, pipe.mcfg.n_latent, -1), pipe.noise, remat=remat)
     (g,) = torch.autograd.grad((imgs * cot).sum(), w)
     return imgs.detach(), g
 
@@ -179,6 +180,11 @@ def _worker(tmp: str, rank: int) -> None:
     out["tp_imgs"], out["tp_grad"] = (t.numpy() for t in _tp_synthesis(
         sharded, pipe, torch.from_numpy(out["gen_wx"]), torch.from_numpy(inp["cot"])))
     keep("tp", ps.attribute_on_mesh(mesh12, *common, mcfg=pipe.mcfg, acfg=ACFG, alpha_init=a0, shard_model=True))
+    # with gradient checkpointing: the backward runs each block's gathers again, on both ranks
+    out["tp_remat_imgs"], out["tp_remat_grad"] = (t.numpy() for t in _tp_synthesis(
+        sharded, pipe, torch.from_numpy(out["gen_wx"]), torch.from_numpy(inp["cot"]), remat=True))
+    keep("tp_remat", ps.attribute_on_mesh(mesh12, *common, mcfg=pipe.mcfg, acfg=ACFG, alpha_init=a0,
+                                          shard_model=True, remat=True))
 
     # the engine on the data mesh: rank 0 runs the queue, rank 1 follows its batches
     engine = InferenceEngine(pipe, acfg=ACFG, cfg=SERVE, seed=3, mesh=mesh)
@@ -255,11 +261,8 @@ def ranks(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), tmp, str(r)], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    logs = [p.communicate(timeout=300)[0] for p in procs]
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
-    outs = [dict(np.load(os.path.join(tmp, f"out_{r}.npz"))) for r in range(2)]
 
-    # the reference package's parallel functions on the same inputs, on a 2-device mesh
+    # while the ranks run: the reference package's parallel functions on the same inputs, on a 2-device mesh
     jmesh = jpm.make_mesh(data=2, devices=jax.devices()[:2])
     jmcfg, jacfg = JModelConfig(**MKW), JAttributionConfig(steps=ACFG.steps, n_starts=N_, loss="mse")
     jgen = jax.tree.map(lambda t: jnp.asarray(t.numpy()), pipe.gen_params)
@@ -283,9 +286,6 @@ def ranks(tmp_path_factory):
                                            acfg=jacfg, chunk_starts=1, solve_fn=jsolve_fn,
                                            alpha_init=jnp.asarray(a0), key_init=zeros),
     }
-    jpipe = jsolver.place_pipeline(jmesh, jpl.Pipeline(mcfg=jmcfg, fpcfg=None, gen_params=jgen, basis=jbasis,
-                                                       pca=None, noise=tuple(jnoise)))
-    jax_side["imgs"] = np.asarray(jpl.synthesize(jpipe, jpm.shard_batch(jmesh, jnp.asarray(outs[0]["gen_wx"]))))
     tm = ModelConfig(**TKW)
     state = gan.init_train_state(tm, TCFG, torch.Generator().manual_seed(0), "cpu")
     g, d = (jax.tree.map(lambda v: jnp.asarray(v.numpy()), t) for t in (state.g_params, state.d_params))
@@ -296,6 +296,13 @@ def ranks(tmp_path_factory):
     _, run_chunk_data = jtrain.make_mesh_chunk_runners(jmesh, jtm, jtcfg, external_data=True)
     _, jm = run_chunk_data(jstate, base, jnp.int32(0), jtrain.shard_reals(jmesh, inp["reals"]))
     jax_side["train_metrics"] = np.stack([np.asarray(jm[k]) for k in ("d_loss", "r1", "g_loss")], axis=1)
+
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    outs = [dict(np.load(os.path.join(tmp, f"out_{r}.npz"))) for r in range(2)]
+    jpipe = jsolver.place_pipeline(jmesh, jpl.Pipeline(mcfg=jmcfg, fpcfg=None, gen_params=jgen, basis=jbasis,
+                                                       pca=None, noise=tuple(jnoise)))
+    jax_side["imgs"] = np.asarray(jpl.synthesize(jpipe, jpm.shard_batch(jmesh, jnp.asarray(outs[0]["gen_wx"]))))
     return {"pipe": pipe, "targets": targets, "outs": outs, "jax": jax_side}
 
 
@@ -303,9 +310,10 @@ def test_both_ranks_hold_the_global_results(ranks):
     o0, o1 = ranks["outs"]
     assert list(o0["mesh_shape"]) == [2, 1] and (int(o0["index"]), int(o1["index"])) == (0, 1)
     for k in o0:
-        if k not in ("index", "tp_grad") and not k.startswith("serve"):
+        if k not in ("index", "tp_grad", "tp_remat_grad") and not k.startswith("serve"):
             np.testing.assert_array_equal(o0[k], o1[k], err_msg=k)
-    np.testing.assert_allclose(o0["tp_grad"], o1["tp_grad"], rtol=1e-6, atol=1e-7)  # summed in rank order
+    for k in ("tp_grad", "tp_remat_grad"):  # summed in rank order
+        np.testing.assert_allclose(o0[k], o1[k], rtol=1e-6, atol=1e-7)
     assert not any(k.startswith("serve") for k in o1)  # only rank 0 answers requests
     assert o0["train_states_equal"] and o0["runner_states_equal"]
     np.testing.assert_array_equal(o0["allgather"], [[0, 0], [1, 1]])
@@ -405,6 +413,21 @@ def test_model_axis_synthesis_and_gradient_match_the_unsharded_port(ranks, direc
                                 np.float32)))
     np.testing.assert_allclose(o["tp_imgs"], imgs.numpy(), atol=1e-5)
     np.testing.assert_allclose(o["tp_grad"], g.numpy(), atol=1e-5 * float(g.abs().max()))
+
+
+def test_model_axis_with_remat_gives_what_it_gives_without(ranks):
+    """``remat`` on a 1 x 2 mesh: each checkpointed block's backward runs its
+    forward again, the channel gathers with it, in one order on both ranks.
+    The sharded synthesis (images bitwise, its latent gradient within 1e-6 of
+    its scale) and the 2-step mse solve (the same key bits and winners, losses
+    and alpha within 1e-6) are those without."""
+    o = ranks["outs"][0]
+    np.testing.assert_array_equal(o["tp_remat_imgs"], o["tp_imgs"])
+    np.testing.assert_allclose(o["tp_remat_grad"], o["tp_grad"], atol=1e-6 * float(np.abs(o["tp_grad"]).max()))
+    for f in ("key_bits", "best_start"):
+        np.testing.assert_array_equal(o[f"tp_remat_{f}"], o[f"tp_{f}"], err_msg=f)
+    for f in ("loss", "losses_all", "alpha"):
+        np.testing.assert_allclose(o[f"tp_remat_{f}"], o[f"tp_{f}"], rtol=1e-6, atol=1e-7, err_msg=f)
 
 
 def test_mesh_engine_serves_what_the_one_device_engine_serves(ranks, direct_cpu_convs):

@@ -170,6 +170,71 @@ def test_upblur4_fused_and_adjoint_counts(h):
     assert roofline.LAUNCHES_PER_STEP["upblur4"] == roofline.LAUNCHES_PER_STEP["upblur4_adj"] == 6
 
 
+# A solve step's launches at 256 px (the tables the card runs are held to) and at
+# 1024 px (StyleGAN2 config-f: 8 upsample blocks; LPIPS on the 1024^2 image; in bf16
+# the cotangent cascade sends its two widest levels alone first), with gradient
+# checkpointing: remat re-runs each block's forward blur4, remat_lpips LPIPS's forward.
+STEP_LAUNCHES = [
+    ("float32", 256, False, False, dict(blur4=12, upblur4=6, upblur4_adj=6, conv3x3_relu=16, vgg_slice1_fwd=1,
+                                        vgg_slice1_bwd=1)),
+    ("bfloat16", 256, False, False, dict(blur4=12, upblur4=1, upblur4_adj=1, conv3x3_relu=16, vgg_slice1_fwd=1,
+                                         vgg_slice1_bwd=1)),
+    ("float32", 1024, False, False, dict(blur4=16, upblur4=8, upblur4_adj=8, conv3x3_relu=16, vgg_slice1_fwd=1,
+                                         vgg_slice1_bwd=1)),
+    ("bfloat16", 1024, False, False, dict(blur4=16, upblur4=1, upblur4_adj=3, conv3x3_relu=16, vgg_slice1_fwd=1,
+                                          vgg_slice1_bwd=1)),
+    ("float32", 1024, True, False, dict(blur4=24, upblur4=8, upblur4_adj=8, conv3x3_relu=16, vgg_slice1_fwd=1,
+                                        vgg_slice1_bwd=1)),
+    ("bfloat16", 1024, True, True, dict(blur4=24, upblur4=1, upblur4_adj=3, conv3x3_relu=24, vgg_slice1_fwd=2,
+                                        vgg_slice1_bwd=1)),
+]
+
+
+@pytest.mark.parametrize("dtype,img,remat,remat_lpips,want", STEP_LAUNCHES)
+def test_step_launches_at_256_and_1024(dtype, img, remat, remat_lpips, want):
+    sfx = "_bf16" if dtype == "bfloat16" else ""
+    assert roofline.step_launches(dtype, img, remat, remat_lpips) == {k + sfx: v for k, v in want.items()}
+    if img == 256 and not remat:
+        assert roofline.step_launches(dtype) == roofline.step_launches(dtype, 256)
+        assert dtype == "bfloat16" or roofline.LAUNCHES_PER_STEP == want
+    n = roofline.chain_levels(img)
+    assert len(roofline.blur4_shapes(img)) == len(roofline.upblur4_shapes(img)) == n
+    if dtype == "bfloat16":
+        assert want["upblur4_adj"] == 1 + upfirdn2d_cuda.adj_chain_split(4, 4, 3, n)
+
+
+@pytest.mark.parametrize("img", [256, 512, 1024])
+def test_main_path_shapes_follow_the_channel_map(img):
+    """blur4 at (C_r, r) for r = 8 .. img_size with config-f's C_r (512 up to 64 px,
+    then halving as r doubles), so from 64 px on every level moves twice the
+    bytes of the one below; the skip chain's inputs 4 .. img_size / 2; LPIPS's
+    square convs at img_size / 2 .. img_size / 16 and slice 1 on the image, so
+    their bytes grow with the pixels.  At 256 px: the constants."""
+    n = 2
+    shapes = roofline.blur4_shapes(img)
+    assert [h for _, h in shapes] == [2 ** k for k in range(3, int(np.log2(img)) + 1)]
+    assert [c for c, _ in shapes] == [min(512, 32768 // h) for _, h in shapes]
+    fwd = dict(roofline.main_path("blur4", n, img_size=img))
+    for (c0, h0), (c1, h1) in zip(shapes, shapes[1:]):
+        b0, b1 = fwd[f"C{c0}_H{h0}"]["bytes"], fwd[f"C{c1}_H{h1}"]["bytes"]
+        assert b1 == 4.0 * n * c1 * (h1 * h1 + (h1 + 1) ** 2)
+        if h1 > 64:
+            assert b1 / b0 == pytest.approx(2.0, rel=0.02)
+    assert roofline.upblur4_shapes(img) == tuple(2 ** k for k in range(2, int(np.log2(img))))
+    assert [(c, h) for c, h, _ in roofline.conv3x3_shapes(img)] == [(128, img // 2), (256, img // 4),
+                                                                    (512, img // 8), (512, img // 16)]
+    small, big = roofline.main_path("conv3x3_relu", n), roofline.main_path("conv3x3_relu", n, img_size=img)
+    for (_, a), (_, b) in zip(small, big):
+        act = (img // 256) ** 2  # activations scale with the pixels; the weights stay
+        assert b["flops"] == a["flops"] * act
+    (label, s1), = roofline.main_path("vgg_slice1_fwd", n, img_size=img)
+    assert label == f"C3_H{img}" and s1 == roofline.slice1_fwd(n, img, img)
+    if img == 256:
+        assert (shapes, roofline.upblur4_shapes(img), roofline.conv3x3_shapes(img)) == (
+            roofline.BLUR4_SHAPES, roofline.UPBLUR4_SHAPES, roofline.CONV3X3_SHAPES)
+        assert roofline.SLICE1_H == 256
+
+
 # ---------------------------------------------------------------------------
 # (d) library entry points run on the card unless asked for the CPU
 # ---------------------------------------------------------------------------
