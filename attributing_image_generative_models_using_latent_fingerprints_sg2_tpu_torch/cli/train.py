@@ -34,7 +34,7 @@ from ..checkpoints.flat import flatten_params
 from ..checkpoints.rosinality import generator_state_dict_from_params
 from ..config import ModelConfig
 from ..parallel import multihost
-from ..parallel.train import batch_rows, place_train_state, shard_reals
+from ..parallel.train import place_train_state, shard_reals
 from ..training.gan import TrainConfig, init_train_state, run_steps
 from ..training.snapshot import check_meta, load_snapshot, save_snapshot
 from ..utils.device import resolve_device
@@ -100,8 +100,6 @@ def main(argv=None) -> int:
         print(f"[train] batch {args.batch} does not tile the {mesh.shape['data']}-way data axis: every rank "
               "trains on the whole batch")
         mesh = None
-    if mesh is not None:
-        batch_rows(mesh, args.batch)  # raises unless each rank can hold whole minibatch-stddev groups
     writer = multihost.process_index() == 0  # rank 0 writes metrics, snapshots and exports
     mcfg = ModelConfig(model="sg2", img_size=args.img_size, style_dim=args.style_dim, n_mlp=args.n_mlp,
                        channel_max=args.channel_max, channel_multiplier=args.channel_multiplier, ckpt=None)

@@ -40,7 +40,7 @@ import torch.utils.checkpoint
 from ..config import ModelConfig
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.upfirdn2d import make_kernel, upfirdn2d, upsample2x_add, upsample2x_chain
-from ..parallel.mesh import gather_channels, sum_grad_over_model
+from ..parallel.mesh import gather_channels, gather_rows, sum_grad_over_model
 from ..utils.tree import tree_to
 
 Params = Dict[str, Any]
@@ -342,38 +342,63 @@ def res_block(x: torch.Tensor, p: Params, blur_kernel=(1, 3, 3, 1)) -> torch.Ten
     return (out + skip) / math.sqrt(2.0)
 
 
-def minibatch_stddev(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8) -> torch.Tensor:
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8, mesh=None) -> torch.Tensor:
     """Append the group stddev feature map (ref ``src/model.py:684-692``):
-    sample i is grouped with i + k * (B / group), group = min(B, group_size)."""
+    sample i is grouped with i + k * (B / group), group = min(B, group_size).
+
+    With a ``mesh``, ``x`` is this rank's contiguous block of rows of a batch
+    sharded over "data" (``stddev_gathers``): the rows are gathered over
+    "data" (``parallel.mesh.gather_rows``), the map is the global batch's,
+    and this rank keeps its rows of it."""
     b, h, w, c = x.shape
-    group = min(b, group_size)
-    var = x.reshape(group, -1, h, w, c).var(dim=0, unbiased=False)
+    full = x if mesh is None else gather_rows(x, mesh)
+    group = min(full.shape[0], group_size)
+    var = full.reshape(group, -1, h, w, c).var(dim=0, unbiased=False)
     std = torch.sqrt(var + eps).mean(dim=(1, 2, 3), keepdim=True)  # [B / group, 1, 1, 1]
-    return torch.cat([x, std.repeat(group, h, w, 1)], dim=-1)
+    std = std.repeat(group, h, w, 1)
+    if mesh is not None:
+        std = std[mesh.index("data") * b:(mesh.index("data") + 1) * b]
+    return torch.cat([x, std], dim=-1)
+
+
+def stddev_gathers(batch: int, parts: int, group_size: int = 4) -> bool:
+    """Whether a batch split into ``parts`` gathers its rows at the stddev
+    layer: its B / group :func:`minibatch_stddev` group columns do not split
+    whole over the parts."""
+    group = min(batch, group_size)
+    return batch % group != 0 or (batch // group) % parts != 0
 
 
 def stddev_rows(batch: int, parts: int, index: int, group_size: int = 4) -> torch.Tensor:
-    """The rows of part ``index`` of ``parts`` when a batch is split into parts
-    that hold whole :func:`minibatch_stddev` groups: the part's share of the
-    B / group columns j, rows j + k * (B / group) in the order that the part's
-    own ``minibatch_stddev`` forms the groups the whole batch's forms."""
+    """The rows of part ``index`` of a batch split into ``parts``.
+
+    Where the B / group columns j split over the parts, the part's share of
+    them: rows j + k * (B / group), in the order that the part's own
+    ``minibatch_stddev`` forms the groups the whole batch's forms, with no
+    collective.  Otherwise (:func:`stddev_gathers`) the contiguous block
+    [index * B / parts, (index + 1) * B / parts), whose discriminator gathers
+    the rows at the stddev layer."""
+    if batch % parts:
+        raise ValueError(f"batch {batch} not divisible by {parts} parts")
+    if stddev_gathers(batch, parts, group_size):
+        per = batch // parts
+        return torch.arange(index * per, (index + 1) * per)
     group = min(batch, group_size)
     cols = batch // group
-    if batch % group or cols % parts:
-        raise ValueError(f"batch {batch}: its {cols} minibatch-stddev groups of {group} do not split over "
-                         f"{parts} ranks")
     per = cols // parts
     return torch.tensor([k * cols + index * per + j for k in range(group) for j in range(per)])
 
 
-def discriminator_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def discriminator_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, stddev_mesh=None) -> torch.Tensor:
     """Logits [B, 1] of NHWC images [B, S, S, 3] (ref ``src/model.py:681-699``).
     The 4x4 map is flattened in H, W, C order, so ``final_linear0``'s [in, out]
-    weight is the JAX package's (the reference flattens C, H, W)."""
+    weight is the JAX package's (the reference flattens C, H, W).
+    ``stddev_mesh``: ``x`` is this rank's contiguous rows of a batch sharded
+    over its "data" axis, gathered at the stddev layer (:func:`minibatch_stddev`)."""
     out = conv_layer(x, params["from_rgb"])
     for rb in params["blocks"]:
         out = res_block(out, rb, cfg.blur_kernel)
-    out = conv_layer(minibatch_stddev(out), params["final_conv"])
+    out = conv_layer(minibatch_stddev(out, mesh=stddev_mesh), params["final_conv"])
     out = out.reshape(out.shape[0], -1)
     out = equal_linear(out, params["final_linear0"], activation=True)
     return equal_linear(out, params["final_linear1"])

@@ -7,7 +7,10 @@ becomes a grid of the ranks of one ``torch.distributed`` process group
 
 - axis **"data"**: the embarrassingly parallel axes --- attribution samples
   x restarts, the generation batch, the training batch.  A rank holds its
-  rows; results come back by a gather over "data" in sample order.
+  rows; results come back by a gather over "data" in sample order.  A
+  training batch whose minibatch-stddev groups do not split whole over the
+  ranks is gathered inside the discriminator (:func:`gather_rows`, whose
+  backward sums the cotangents over "data").
 - axis **"model"**: tensor parallelism for synthesis.  The styled convs'
   weights and activation biases shard their output channels over "model"
   (:func:`shard_generator_params`); synthesis gathers the channels after
@@ -195,6 +198,52 @@ class _GatherChannels(torch.autograd.Function):
         return g[..., i * ctx.c:(i + 1) * ctx.c].contiguous(), None
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every "data" rank's rows (dim 0), concatenated in rank order: the
+    global batch of a tensor in the contiguous layout (:func:`data_sharded`).
+    Its backward is :class:`_SumRowsOverData`, so that a gradient taken with
+    ``create_graph=True`` (the R1 penalty) can be differentiated again."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_gather_rows(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SumRowsOverData.apply(g, ctx.mesh), None
+
+
+class _SumRowsOverData(torch.autograd.Function):
+    """This rank's rows of the sum over "data" of every rank's global-batch
+    tensor: a reduce-scatter, written as an all_reduce and the rank's slice
+    (gloo has no reduce-scatter).  Its backward is :class:`_GatherRows`."""
+
+    @staticmethod
+    def forward(ctx, g, mesh):
+        ctx.mesh = mesh
+        y = _staged(mesh, g.contiguous()).clone()
+        dist.all_reduce(y, group=mesh.groups["data"])
+        n = g.shape[0] // mesh.shape["data"]
+        return y[mesh.index("data") * n:(mesh.index("data") + 1) * n].to(g.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherRows.apply(g, ctx.mesh), None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The global batch of ``x``, this rank's contiguous rows, on every rank.
+
+    The backward sums the cotangents over "data"; it does not average them.
+    Each rank's loss L_r is the mean over its own rows and the parameter
+    gradients are averaged over "data" afterwards (``training.gan._grads``), so
+    (1/R) * sum_r d(sum_r' L_r')/d(theta) through rank r's rows = dL_global/d(theta):
+    a rank's rows receive the gradient of every rank's loss, as the reference's
+    global-batch ``grad`` gives them."""
+    return _GatherRows.apply(x, mesh)
+
+
 def sum_grad_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _SumGradOverModel.apply(x, mesh)
 
@@ -211,13 +260,16 @@ def shard_generator_params(mesh: Mesh, params: Any) -> Any:
     conv's dict carries the mesh under ``"model_shard"``, which tells
     ``models.stylegan2.styled_conv`` to gather.  Modulation, mapping, the
     constant input and ToRGB (O = 3) stay replicated.  Every tensor is first
-    replicated from the mesh's first rank."""
+    replicated from the mesh's first rank.
+
+    A tree without ``"convs"`` (BigGAN) is returned replicated: the
+    reference's placement shards only 4-D leaves named ``weight`` and
+    ``act_bias`` leaves, and BigGAN's convs are ``w`` and its only ``weight``
+    leaves are 1-D batch-norm scales, so every rank runs the whole network."""
     replicate(mesh, params)
     m = mesh.shape["model"]
-    if m == 1:
+    if m == 1 or "convs" not in params:
         return params
-    if "convs" not in params:
-        raise NotImplementedError("model-axis sharding is ported for StyleGAN2's synthesis only")
     i = mesh.index("model")
 
     def shard(p):

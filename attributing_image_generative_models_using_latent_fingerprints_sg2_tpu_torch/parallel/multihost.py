@@ -28,6 +28,7 @@ never switched after a failure.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Any, Optional
 
@@ -88,6 +89,7 @@ def initialize(
     process_id: Optional[int] = None,
     *,
     device,
+    timeout: Optional[float] = None,
 ) -> torch.device:
     """Join (or start) the process group; idempotent.  Returns this rank's device.
 
@@ -95,7 +97,9 @@ def initialize(
     ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).  A
     ``coordinator_address`` "host:port" means ``tcp://host:port``; a URL
     (``tcp://``, ``file://``) is used as it is, with ``num_processes`` and
-    ``process_id``."""
+    ``process_id``.  ``timeout`` (seconds) bounds every collective's wait:
+    a rank left waiting that long raises instead of hanging (torch's
+    default, 30 minutes, when None)."""
     rank = process_id if process_id is not None else int(os.environ.get("RANK", "0"))
     if dist.is_initialized():
         return rank_device(device, dist.get_rank())
@@ -109,7 +113,8 @@ def initialize(
     device = rank_device(device, rank)
     backend = choose_backend(device, world)
     print(f"[parallel] rank {rank} of {world}: device {device}, backend {backend}", flush=True)
-    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank, **kw)
     return device
 
 

@@ -5,9 +5,13 @@ The semantics are the global batch's, as GSPMD keeps them in the reference:
 
 - the TrainState (G, D, EMA, both Adam states) is replicated;
 - every rank draws the global batch of a step from (seed, step) and keeps
-  its rows, chosen so that each rank holds whole minibatch-stddev groups
-  (``models.stylegan2.stddev_rows``): the discriminator's batch statistics
-  are then the global batch's without a collective;
+  its rows (``models.stylegan2.stddev_rows``).  Where the batch's
+  minibatch-stddev groups split whole over the ranks, each rank holds whole
+  groups, and the discriminator's batch statistics are the global batch's
+  without a collective.  Otherwise each rank holds a contiguous block of
+  rows, and the discriminator gathers the rows over "data" at its stddev
+  layer (``parallel.mesh.gather_rows``; its backward sums the cotangents, so
+  R1's gradient in a rank's reals includes every rank's logits);
 - each rank's losses are means over its rows; the gradients are averaged
   over "data" before Adam (the R1 term with them), so every rank takes the
   global batch's step and the state stays equal on every rank.
@@ -36,7 +40,8 @@ def place_train_state(mesh: Mesh, state: TrainState) -> TrainState:
 
 
 def batch_rows(mesh: Mesh, batch: int) -> torch.Tensor:
-    """This rank's rows of a global training batch."""
+    """This rank's rows of a global training batch: whole minibatch-stddev
+    groups where they split over "data", else its contiguous block."""
     return stddev_rows(batch, mesh.shape["data"], mesh.index("data"))
 
 
@@ -49,7 +54,6 @@ def make_mesh_chunk_runners(mesh: Mesh, mcfg: ModelConfig, tcfg: TrainConfig):
     Both return the global batch's metrics of every step."""
     if tcfg.batch % mesh.shape["data"] != 0:
         raise ValueError(f"batch {tcfg.batch} not divisible by data axis {mesh.shape['data']}")
-    batch_rows(mesh, tcfg.batch)  # raises unless each rank can hold whole stddev groups
 
     def run_chunk(state: TrainState, seed: int, length: int):
         return run_steps(state, seed, length, mcfg, tcfg, mesh=mesh)

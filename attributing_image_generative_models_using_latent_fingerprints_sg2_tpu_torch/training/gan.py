@@ -194,9 +194,12 @@ def train_step(state: TrainState, draws: Dict[str, Any], mcfg: ModelConfig,
     of sum(D(real)) in the reals (a second derivative for D's update).
 
     On a ``parallel.mesh`` grid, ``draws`` are this rank's rows of the global
-    batch, whole minibatch-stddev groups (``parallel.train.shard_draws``):
-    gradients and metrics are averaged over "data", so every rank takes the
-    global batch's step and its parameters, EMA and Adam states stay equal."""
+    batch (:func:`shard_draws` of ``models.stylegan2.stddev_rows``): whole
+    minibatch-stddev groups where they split over the ranks, else contiguous
+    rows that the discriminator gathers at its stddev layer.  Gradients and
+    metrics are averaged over "data", so every rank takes the global batch's
+    step and its parameters, EMA and Adam states stay equal."""
+    gather = mesh if mesh is not None and sg2.stddev_gathers(tcfg.batch, mesh.shape["data"]) else None
     real = draws["real"]
     with torch.no_grad():
         fake_d = _synthesize(state.g_params, draws["d"], mcfg)
@@ -205,8 +208,8 @@ def train_step(state: TrainState, draws: Dict[str, Any], mcfg: ModelConfig,
     dp = _with_grad(state.d_params)
     if do_r1:
         real = real.detach().requires_grad_(True)
-    real_logit = sg2.discriminator_apply(dp, real, mcfg)
-    fake_logit = sg2.discriminator_apply(dp, fake_d, mcfg)
+    real_logit = sg2.discriminator_apply(dp, real, mcfg, gather)
+    fake_logit = sg2.discriminator_apply(dp, fake_d, mcfg, gather)
     d_adv = F.softplus(-real_logit).mean() + F.softplus(fake_logit).mean()
     loss, r1 = d_adv, torch.zeros((), device=d_adv.device)
     if do_r1:
@@ -218,7 +221,7 @@ def train_step(state: TrainState, draws: Dict[str, Any], mcfg: ModelConfig,
 
     gp = _with_grad(state.g_params)
     fake = _synthesize(gp, draws["g"], mcfg)
-    g_loss = F.softplus(-sg2.discriminator_apply(state.d_params, fake, mcfg)).mean()
+    g_loss = F.softplus(-sg2.discriminator_apply(state.d_params, fake, mcfg, gather)).mean()
     adam_update_(state.g_params, _grads(g_loss, gp, mesh), state.g_opt, tcfg)
 
     with torch.no_grad():

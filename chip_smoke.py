@@ -142,8 +142,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                --ckpt`` on the trained generator, its bit accuracy printed.
 16. studies -- the quality studies (``cli.study``) on the card at the study's
                width (64 px, channel_max 128, style_dim 512, n_mlp 8, trained
-               3000 steps at batch 16, PCA over 10000 samples), one process a
-               run: a robustness point with the first training, the five
+               at batch 16, 600 steps deep where the recipe says 3000, PCA
+               over 10000 samples), one process a run: a robustness point with the first training, the five
                perceptual backbones on Jpeg (the two calibrated ones fit their
                2AFC heads), an identification point, ``capacity`` on the
                cached recipe (nothing trained: its FID sweep over 8 samples,
@@ -287,6 +287,11 @@ BF16 = None  # name suffix of a kernel's bfloat16 variant: ops/roofline.py's BF1
 # the tiny converging configuration of the reference's end-to-end test
 TINY = dict(img_size=32, style_dim=64, n_mlp=3, channel_max=64)
 TINY_SEED = 1
+# the whole run, the kernels' build included, must end within 1200 s: every child process gets at
+# most what is left of BUDGET_S, and the watchdog ends the run (children included) at WATCHDOG_S
+BUDGET_S, WATCHDOG_S = 1100, 1150
+T0 = time.time()
+CHILDREN = set()  # the process groups of the children running now
 
 
 def emit(obj) -> None:
@@ -296,6 +301,51 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def time_left(cap: float) -> float:
+    """The seconds a child process may take: ``cap``, cut to what is left of BUDGET_S."""
+    left = BUDGET_S - (time.time() - T0)
+    check(left > 0, f"the run has used its {BUDGET_S} s")
+    return min(cap, left)
+
+
+def run_child(cmd, cap: float, input=None, **kw) -> subprocess.CompletedProcess:
+    """``subprocess.run(cmd, capture_output=True, text=True)`` in a process group of
+    its own, within ``time_left(cap)``: past it the whole group (torch.distributed.run's
+    ranks too) is killed and the check fails with the child's last output."""
+    import signal
+
+    p = subprocess.Popen(cmd, stdin=subprocess.PIPE if input is not None else None, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, start_new_session=True, **kw)
+    CHILDREN.add(p.pid)
+    try:
+        out, err = p.communicate(input, timeout=time_left(cap))
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        print(out[-6000:], end="", flush=True)
+        check(False, f"{cmd[:4]} still running after {cap} s (or the run's budget): {err[-3000:]}")
+    finally:
+        CHILDREN.discard(p.pid)
+    return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+def start_watchdog() -> None:
+    """End the run with a message and exit code 1 if it is still going at WATCHDOG_S,
+    killing the children's process groups first (a hang fails loudly, inside the limit)."""
+    import signal
+    import threading
+
+    def watch():
+        time.sleep(max(0.0, WATCHDOG_S - (time.time() - T0)))
+        print(f"chip_smoke: still running after {WATCHDOG_S} s; stopped", file=sys.stderr, flush=True)
+        for pid in list(CHILDREN):
+            with contextlib.suppress(OSError):
+                os.killpg(pid, signal.SIGKILL)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
 
 
 def gpu_name_and_power() -> str:
@@ -1543,8 +1593,7 @@ print(json.dumps({"wall_s": time.perf_counter() - t0, "replies": out}))
 
 
 def _burst(url, payloads):
-    r = subprocess.run([sys.executable, "-c", _CLIENT], input=json.dumps([url, payloads]), capture_output=True,
-                       text=True, timeout=600)
+    r = run_child([sys.executable, "-c", _CLIENT], 600, input=json.dumps([url, payloads]))
     check(r.returncode == 0, f"client process failed: {r.stderr[-2000:]}")
     return json.loads(r.stdout)
 
@@ -2100,8 +2149,7 @@ def phase_train_tiny(torch, port, gpu):
                  ["--steps", "80", "--snapshot", snap, "--resume", "--metrics_out", metrics, "--out", part],
                  ["--steps", "80", "--out", whole]):
         t0 = time.time()
-        r = subprocess.run([sys.executable, "-c", code, *base, *args], cwd=ROOT, capture_output=True, text=True,
-                           timeout=600)
+        r = run_child([sys.executable, "-c", code, *base, *args], 600, cwd=ROOT)
         seconds.append(time.time() - t0)
         print(r.stdout, end="", flush=True)
         check(r.returncode == 0, f"cli.train {args} returned {r.returncode}: {r.stderr[-2000:]}")
@@ -2134,7 +2182,7 @@ def phase_train_tiny(torch, port, gpu):
 # features (with their image count).
 STUDY_RUNNER = r"""
 import json, sys, time
-root, counts_path, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+root, counts_path, train_steps, argv = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4:]
 sys.path.insert(0, root)
 PORT = "attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch"
 import importlib
@@ -2175,7 +2223,13 @@ def inception_counted(params, imgs, batch=16):
 pl.synthesize = counted("renders", pl.synthesize)
 cal.calibrate_lin_heads = counted("calibration", cal.calibrate_lin_heads)
 cal.rank_accuracy = counted("calibration", cal.rank_accuracy)
-est.ensure_trained = counted("training", est.ensure_trained)
+ensure_trained = est.ensure_trained
+
+def ensure_trained_cut(**kw):
+    # the recipe trained train_steps deep (its widths, batch and seed as the study gives them)
+    return ensure_trained(**{**kw, "train_steps": train_steps})
+
+est.ensure_trained = counted("training", ensure_trained_cut)
 dp.disc_features = counted("disc_features", dp.disc_features)
 lp.lpips = counted("visibility", lp.lpips)
 fid.frechet_distance = counted("frechet", fid.frechet_distance)
@@ -2207,6 +2261,8 @@ STUDY_KEYS = {"img_size", "channel_max", "ckpt", "key_len", "sigma", "shift", "a
               "band_sigma_median", "content_sigma_median", "spectrum_decile_sigmas", "tag", "train_steps",
               "bit_sigma_spearman", "wall_s"}
 STUDY_BUDGET = ["--samples", "2", "--steps", "40", "--n", "4"]
+# the study's 64px recipe is trained 3000 steps; here 600 (its host-bound loop was a quarter of the run)
+STUDY_TRAIN_STEPS = 600
 
 
 def study_run(work: str, argv, timeout: int, module: str = "study"):
@@ -2216,12 +2272,12 @@ def study_run(work: str, argv, timeout: int, module: str = "study"):
     if os.path.exists(counts_path):
         os.remove(counts_path)
     if module == "study":
-        cmd = [sys.executable, "-c", STUDY_RUNNER, ROOT, counts_path, *argv]
+        cmd = [sys.executable, "-c", STUDY_RUNNER, ROOT, counts_path, str(STUDY_TRAIN_STEPS), *argv]
     else:
         cmd = [sys.executable, "-m", f"{PORT}.cli.{module}", *argv]
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.time()
-    r = subprocess.run(cmd, cwd=work, capture_output=True, text=True, timeout=timeout, env=env)
+    r = run_child(cmd, timeout, cwd=work, env=env)
     seconds = time.time() - t0
     print(r.stdout, end="", flush=True)
     check(r.returncode == 0, f"cli.{module} {argv} returned {r.returncode}: {r.stderr[-3000:]}")
@@ -2276,8 +2332,9 @@ def phase_studies(torch, port, gpu, device="cuda", budget=STUDY_BUDGET):
     """Phase 16: the port's ``cli.study`` on the card, one process a run, in a
     git-ignored work directory (so the default ``result/study_<name>_torch.json``
     names are used there), at the study's own width: StyleGAN2 at 64 px,
-    channel_max 128, style_dim 512, n_mlp 8, trained 3000 steps at batch 16 by
-    ``ensure_trained`` (with its discriminator), PCA over 10000 samples.
+    channel_max 128, style_dim 512, n_mlp 8, trained at batch 16 by
+    ``ensure_trained`` (with its discriminator) STUDY_TRAIN_STEPS deep (the
+    recipe's 3000 cut), PCA over 10000 samples.
 
     1. ``robustness --only 64px_kl32_s6_Jpeg``: trains the recipe once into the
        phase's ``--cache_dir``; the training's wall time, the pipeline's (PCA
@@ -2300,7 +2357,7 @@ def phase_studies(torch, port, gpu, device="cuda", budget=STUDY_BUDGET):
     base = ["--device", device, "--cache_dir", os.path.join(work, "ckpts"), *budget]
     bf16_names = [n for n in port["_cuda"].KERNELS if n.endswith(BF16)]
     runs, line = {}, {"phase": "studies", "img_size": 64, "channel_max": 128, "style_dim": 512, "n_mlp": 8,
-                      "train_steps": 3000, "train_batch": 16, "n_pca_samples": 10000, "samples": 2, "steps": 40,
+                      "train_steps": STUDY_TRAIN_STEPS, "recipe_train_steps": 3000, "train_batch": 16, "n_pca_samples": 10000, "samples": 2, "steps": 40,
                       "restarts": 4, "dtype": "bfloat16"}
 
     seconds, out, counts = study_run(work, ["robustness", "--only", "64px_kl32_s6_Jpeg", *base], 900)
@@ -2534,14 +2591,35 @@ PARALLEL_TRAIN = ["--device", "cuda", "--img_size", "64", "--channel_max", "128"
 # 10%; on the CPU, 1.2e-7 relative at step 1 grows to 4.4e-4 at step 10 between batch 8 and 2 x 4)
 PARALLEL_LOSS_RTOL = 1e-4
 PARALLEL_TRAIN_TOL = dict(rtol=2e-2, atol=1e-3)  # the reference package's tests/test_training_mesh.py
+PARALLEL_COLLECTIVE_TIMEOUT_S = 180
+# batch 4 on two ranks: one minibatch-stddev group, so each rank holds 2 contiguous rows and the
+# discriminator gathers them at its stddev layer; 4 steps, R1 at step 0 (the later flags rule)
+PARALLEL_TRAIN_GATHER = PARALLEL_TRAIN + ["--batch", "4", "--steps", "4", "--chunk", "4"]
+# BigGAN-deep-256 on a 1 x 2 mesh (every rank is on the model axis): replicated, as the reference places it
+BIGGAN_MODEL_AXIS = ["--mesh_data", "0", "--mesh_model", "2"]
+BIGGAN_PARALLEL_ATTRIBUTE = BIGGAN_FULL + ["--loss", "perceptual", "--sample_size", "2", "--n", "4", "--steps", "1"]
+LPIPS_KERNELS = ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd")
+FIR_KERNELS = ("blur4", "upblur4", "upblur4_adj")
+
+
+def png_arrays(root: str) -> dict:
+    """The PNGs of the one run directory under ``root`` by category and name
+    (``watermarked/000000.png``: the directory's name is its time), as uint8 arrays."""
+    import numpy as np
+    from PIL import Image
+
+    return {os.path.join(os.path.basename(d), f): np.asarray(Image.open(os.path.join(d, f)))
+            for d, _, fs in os.walk(root) for f in fs if f.endswith(".png")}
 
 
 def parallel_worker(work: str) -> int:
     """One rank of phase 18 (started by ``torch.distributed.run``, two ranks
     on the one card): ``cli.attribute --mesh_data 2`` at full width, the tiny
     configuration's planted keys through ``attribute_on_mesh``, ``cli.train
-    --mesh_data 2``; cuDNN held to its deterministic algorithms.  Writes
-    ``rank<r>.json`` into ``work``."""
+    --mesh_data 2`` at batch 16 (whole minibatch-stddev groups a rank) and 4
+    (rows gathered at the stddev layer), BigGAN's ``cli.generate`` /
+    ``cli.attribute --mesh_model 2``; cuDNN held to its deterministic
+    algorithms.  Writes ``rank<r>.json`` into ``work``."""
     import torch
 
     port = import_port()
@@ -2552,7 +2630,8 @@ def parallel_worker(work: str) -> int:
     BF16 = port["roof"].BF16_SUFFIX
     t_start = time.time()
     mh, cuda_mod = port["multihost"], port["_cuda"]
-    device = mh.initialize(device="cuda")
+    # a collective left waiting this long raises: a rank out of step fails the phase, never hangs it
+    device = mh.initialize(device="cuda", timeout=PARALLEL_COLLECTIVE_TIMEOUT_S)
     rank = mh.process_index()
     rec = {"rank": rank, "world": mh.process_count(), "device": str(device),
            "backend": torch.distributed.get_backend(), "local_rank": int(os.environ["LOCAL_RANK"])}
@@ -2586,6 +2665,56 @@ def parallel_worker(work: str) -> int:
           "cli.train --mesh_data 2")
     rec["train"] = {"rows": [json.loads(ln) for ln in open(metrics)] if rank == 0 else [],
                     "seconds": time.time() - t0}
+    t0 = time.time()
+    metrics = os.path.join(work, f"train_gather_{rank}.jsonl")
+    cuda_mod.reset_launches()
+    check(port["cli_train"].main(PARALLEL_TRAIN_GATHER + ["--mesh_data", "2", "--metrics_out", metrics]) == 0,
+          "cli.train --mesh_data 2 --batch 4")
+    launches = cuda_mod.launch_counts()
+    check(all(launches[n] > 0 for n in FIR_KERNELS), f"rank {rank}'s cli.train --batch 4: FIR launches {launches}")
+    rec["train_gather"] = {"rows": [json.loads(ln) for ln in open(metrics)] if rank == 0 else [],
+                           "seconds": time.time() - t0, "launches": launches}
+    # the row gather alone, and with its backward (the all_reduce and slice), at that run's stddev
+    # layer (2 rows a rank, 4 x 4 x 128): a step without R1 makes three of each
+    pmesh, x = port["pmesh"], torch.randn(2, 4, 4, 128, device=device, requires_grad=True)
+    mesh2 = pmesh.make_mesh(data=2)
+
+    def ms_per_call(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    rec["train_gather"]["gather_ms"] = ms_per_call(lambda: pmesh.gather_rows(x, mesh2))
+    rec["train_gather"]["gather_and_backward_ms"] = ms_per_call(
+        lambda: torch.autograd.grad(pmesh.gather_rows(x, mesh2).sum(), x))
+
+    # BigGAN on the model axis: the reference shards no BigGAN leaf, so every rank runs the whole
+    # network; the library's generation against one process on this rank, then both CLIs
+    t0 = time.time()
+    mesh12 = port["pmesh"].make_mesh(data=1, model=2)
+    bpipe = pl.build_pipeline(C.ModelConfig(**BIGGAN_MCFG), C.FingerprintConfig(key_len=32, shift=96),
+                              generator=torch.Generator().manual_seed(0), device=device, want_lpips=False)
+    placed = ps.place_pipeline(mesh12, bpipe, shard_model=True)
+    check(placed.gen_params is bpipe.gen_params, "BigGAN's generator was not replicated on the 1 x 2 mesh")
+    imgs_tp = ps.generate_on_mesh(mesh12, placed, 2, torch.Generator().manual_seed(11))[0]
+    imgs_one = pl.generate_fingerprinted(bpipe, 2, torch.Generator().manual_seed(11))[0]
+    err = float((imgs_tp - imgs_one).abs().max()) / max(1.0, float(imgs_one.abs().max()))
+    check(err <= TOL, f"rank {rank}: BigGAN on the 1 x 2 mesh is {err:.3g} (of max) from one process")
+    check(port["cli_generate"].main(BIGGAN_FULL + BIGGAN_MODEL_AXIS + [
+        "--sample_size", "1", "--save_dir", os.path.join(work, "biggan_generate_tp")]) == 0,
+        "cli.generate --model biggan --mesh_model 2")
+    cuda_mod.reset_launches()
+    r = port["cli_attribute"].run(BIGGAN_PARALLEL_ATTRIBUTE + BIGGAN_MODEL_AXIS + [
+        "--save_dir", os.path.join(work, "biggan_attribute_tp")])
+    launches = cuda_mod.launch_counts()
+    check_all_launched({n: launches[n] for n in LPIPS_KERNELS}, f"rank {rank}'s BigGAN cli.attribute --mesh_model 2")
+    check(all(launches[n] == 0 for n in FIR_KERNELS), f"rank {rank}'s BigGAN solve launched {launches}")
+    rec["biggan_model_axis"] = {"max_err_of_max": err, "bit_acc": r.bit_accs, "losses": r.losses,
+                                "launches": launches, "seconds": time.time() - t0}
 
     # the model axis: generation on a 1 x 2 mesh (each rank half of every styled conv's output
     # channels) against the unsharded generator, and the shapes blur4 was launched at
@@ -2691,18 +2820,20 @@ def phase_parallel(torch, port, gpu):
     --mesh_data 2`` (equal bit accuracies, 1-step losses within
     ``PARALLEL_LOSS_RTOL``, every float32 kernel launched by each rank), the
     tiny planted keys through ``attribute_on_mesh`` (phase 3's criterion on 4
-    samples), ``cli.train --mesh_data 2`` (metrics as the reference's mesh
-    test compares them); the model axis and the served engine as the worker
-    checks them.  The nccl route (a card a rank) needs a second card."""
+    samples), ``cli.train --mesh_data 2`` at batch 16 and at batch 4 (rows
+    gathered at the stddev layer; metrics as the reference's mesh test
+    compares them), BigGAN's ``cli.generate`` (PNGs within a level) and 1-step
+    ``cli.attribute`` (``PARALLEL_LOSS_RTOL``) with ``--mesh_model 2``; the
+    model axis and the served engine as the worker checks them.  The nccl
+    route (a card a rank) needs a second card."""
     work = os.path.join(ROOT, "_chip_work", "parallel")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t_start = time.time()
-    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
-                        os.path.join(ROOT, "chip_smoke.py"), "--parallel-worker", work],
-                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    r = run_child([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                   os.path.join(ROOT, "chip_smoke.py"), "--parallel-worker", work], 600, cwd=ROOT)
     launch_seconds = time.time() - t_start
     print(r.stdout[-6000:], end="", flush=True)
     check(r.returncode == 0, f"the two-rank run returned {r.returncode}: {r.stderr[-3000:]}")
@@ -2731,6 +2862,18 @@ def phase_parallel(torch, port, gpu):
                                                                    "--save_dir", os.path.join(work, "attribute_one_1")])
         metrics = os.path.join(work, "train_one.jsonl")
         check(port["cli_train"].main(PARALLEL_TRAIN + ["--metrics_out", metrics]) == 0, "cli.train")
+        t0 = time.time()
+        metrics_gather = os.path.join(work, "train_gather_one.jsonl")
+        check(port["cli_train"].main(PARALLEL_TRAIN_GATHER + ["--metrics_out", metrics_gather]) == 0,
+              "cli.train --batch 4")
+        gather_single_seconds = time.time() - t0
+        t0 = time.time()
+        check(port["cli_generate"].main(BIGGAN_FULL + ["--sample_size", "1", "--save_dir",
+                                                       os.path.join(work, "biggan_generate_one")]) == 0,
+              "cli.generate --model biggan")
+        biggan_1 = port["cli_attribute"].run(BIGGAN_PARALLEL_ATTRIBUTE + [
+            "--save_dir", os.path.join(work, "biggan_attribute_one")])
+        biggan_single_seconds = time.time() - t0
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
     check(a0["bit_acc"] == single.bit_accs, f"bit accuracies {a0['bit_acc']} on two ranks, {single.bit_accs} on one")
@@ -2746,16 +2889,38 @@ def phase_parallel(torch, port, gpu):
     check(rec0 == {**rec1, "seconds": rec0["seconds"]}, "the ranks disagree on the planted keys")
     check(sum(accs) / 4 > 0.85 and sum(a >= 1.0 for a in accs) >= 3, f"planted keys on two ranks: {accs}")
 
-    one = [json.loads(ln) for ln in open(metrics)]
+    def train_rel_diff(mesh_rows, path, steps, tag):
+        one = [json.loads(ln) for ln in open(path)]
+        check([x["step"] for x in mesh_rows] == list(range(1, steps + 1)) == [x["step"] for x in one],
+              f"{tag}: metric rows")
+        rel = 0.0
+        for a, b in zip(mesh_rows, one):
+            for k in ("d_loss", "r1", "g_loss"):
+                err = abs(a[k] - b[k])
+                check(err <= PARALLEL_TRAIN_TOL["atol"] + PARALLEL_TRAIN_TOL["rtol"] * abs(b[k]),
+                      f"{tag} step {a['step']} {k}: {a[k]} on two ranks, {b[k]} on one")
+                rel = max(rel, err / max(abs(b[k]), 1e-12))
+        return rel, one
+
     mesh_rows = ranks[0]["train"]["rows"]
-    check([x["step"] for x in mesh_rows] == list(range(1, 9)) == [x["step"] for x in one], "metric rows")
-    train_rel = 0.0
-    for a, b in zip(mesh_rows, one):
-        for k in ("d_loss", "r1", "g_loss"):
-            err = abs(a[k] - b[k])
-            check(err <= PARALLEL_TRAIN_TOL["atol"] + PARALLEL_TRAIN_TOL["rtol"] * abs(b[k]),
-                  f"step {a['step']} {k}: {a[k]} on two ranks, {b[k]} on one")
-            train_rel = max(train_rel, err / max(abs(b[k]), 1e-12))
+    train_rel, one = train_rel_diff(mesh_rows, metrics, 8, "cli.train --batch 16")
+    gather_rows = ranks[0]["train_gather"]["rows"]
+    gather_rel, gather_one = train_rel_diff(gather_rows, metrics_gather, 4, "cli.train --batch 4")
+    check(gather_rows[0]["r1"] > 0 and gather_one[0]["r1"] > 0, "cli.train --batch 4: no R1 at step 0")
+
+    bg = [x["biggan_model_axis"] for x in ranks]
+    check(bg[0]["bit_acc"] == bg[1]["bit_acc"] and bg[0]["losses"] == bg[1]["losses"],
+          "the ranks disagree on BigGAN's --mesh_model 2 solve")
+    check(bg[0]["bit_acc"] == biggan_1.bit_accs, f"BigGAN --mesh_model 2: bit accuracies {bg[0]['bit_acc']}, "
+          f"{biggan_1.bit_accs} in one process")
+    biggan_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(bg[0]["losses"], biggan_1.losses))
+    check(biggan_loss_rel <= PARALLEL_LOSS_RTOL, f"BigGAN --mesh_model 2: 1-step losses {bg[0]['losses']}, "
+          f"{biggan_1.losses} in one process")
+    # rank 0 wrote the 1 x 2 mesh's PNGs: float images within TOL round to within one level of 255
+    png_tp, png_one = (png_arrays(os.path.join(work, d)) for d in ("biggan_generate_tp", "biggan_generate_one"))
+    check(len(png_tp) == 4 and sorted(png_tp) == sorted(png_one), f"BigGAN PNGs {sorted(png_tp)} vs {sorted(png_one)}")
+    png_diff = max(int(abs(png_tp[k].astype(int) - png_one[k].astype(int)).max()) for k in png_tp)
+    check(png_diff <= 1, f"BigGAN cli.generate --mesh_model 2: PNGs {png_diff} levels from one process's")
     shutil.rmtree(work, ignore_errors=True)
     model_axis = [x["model_axis"] for x in ranks]
     serve = next(x["serve"] for x in ranks if not x["serve"].get("follower"))
@@ -2770,15 +2935,34 @@ def phase_parallel(torch, port, gpu):
            "recovery": {"bit_acc": accs, "exact": sum(a >= 1.0 for a in accs), "seconds": rec0["seconds"]},
            "train": {"steps": 8, "max_metric_rel_diff": train_rel, "tolerance": PARALLEL_TRAIN_TOL,
                      "d_loss_last": [mesh_rows[-1]["d_loss"], one[-1]["d_loss"]]},
+           "train_gather": {"batch": 4, "steps": 4, "max_metric_rel_diff": gather_rel,
+                            "tolerance": PARALLEL_TRAIN_TOL, "r1_step_1": [gather_rows[0]["r1"], gather_one[0]["r1"]],
+                            "d_loss_last": [gather_rows[-1]["d_loss"], gather_one[-1]["d_loss"]],
+                            "steps_per_s_chunk": [gather_rows[0]["chunk_steps_per_s"],
+                                                  gather_one[0]["chunk_steps_per_s"]],
+                            "gather_ms": [x["train_gather"]["gather_ms"] for x in ranks],
+                            "gather_and_backward_ms": [x["train_gather"]["gather_and_backward_ms"] for x in ranks],
+                            "seconds_per_rank": [x["train_gather"]["seconds"] for x in ranks],
+                            "single_seconds": gather_single_seconds},
+           "biggan_model_axis": {"library_max_err_of_max": [b["max_err_of_max"] for b in bg],
+                                 "png_max_level_diff": png_diff, "bit_acc": bg[0]["bit_acc"],
+                                 "losses_1_step": bg[0]["losses"], "single_losses_1_step": biggan_1.losses,
+                                 "max_loss_rel_diff_1_step": biggan_loss_rel,
+                                 "seconds_per_rank": [b["seconds"] for b in bg],
+                                 "single_seconds": biggan_single_seconds},
            "model_axis": {"max_err_of_max": [m["max_err_of_max"] for m in model_axis],
                           "blur4_shapes": model_axis[0]["blur4_shapes"],
                           "seconds": [m["seconds"] for m in model_axis]},
            "blur4_half_channels": blur4_half_channel_rows(torch, port), "serve": serve,
            "launches_per_rank": [x["attribute"]["launches"] for x in ranks],
+           "launches_per_rank_train_gather": [x["train_gather"]["launches"] for x in ranks],
+           "launches_per_rank_biggan_model_axis": [b["launches"] for b in bg],
            "rank_seconds": [x["seconds"] for x in ranks], "launch_seconds": launch_seconds,
            "seconds": time.time() - t_start, "gpu": gpu}
     emit(out)
-    return [x["attribute"]["launches"] for x in ranks]
+    return {"attribute": [x["attribute"]["launches"] for x in ranks],
+            "train_gather": [x["train_gather"]["launches"] for x in ranks],
+            "biggan_model_axis": [b["launches"] for b in bg]}
 
 
 def import_port() -> dict:
@@ -2821,6 +3005,7 @@ def main() -> int:
     shutil.rmtree(OUT, ignore_errors=True)  # an earlier run's PNGs would be counted with this run's
     os.makedirs(OUT, exist_ok=True)
 
+    start_watchdog()
     gpu = gpu_name_and_power()
     t0 = t_start = time.time()
     lib = port["_cuda"].build()
@@ -2928,7 +3113,9 @@ def main() -> int:
             "launches_studies": study_counts[name],
             "launches_capacity": capacity_counts[name],
             "launches_evaluate": evaluate_counts[name],
-            "launches_parallel": [c[name] for c in parallel_counts],
+            "launches_parallel": [c[name] for c in parallel_counts["attribute"]],
+            "launches_parallel_train_gather": [c[name] for c in parallel_counts["train_gather"]],
+            "launches_parallel_biggan_model_axis": [c[name] for c in parallel_counts["biggan_model_axis"]],
             # the 1024px cli.attribute runs (float32 without and with --remat, bf16 with it), and a
             # solve step's launches there
             **{"launches_1024_" + tag: c[name] for tag, c in counts_1024.items()},

@@ -4,9 +4,12 @@
 ``chunk_starts`` through ``attribute_chunked``'s ``solve_fn`` and on a 1 x 2
 mesh (the model axis, ``shard_model=True``, also with ``remat``),
 ``generate_on_mesh``, three
-data-parallel training steps; a 1 x 2 synthesis and its gradient against the
-unsharded port; the engine on the data mesh against the one-device engine;
-and the rules of ``make_mesh`` and the divisibility errors, which need no ranks.
+data-parallel training steps at batch 8 (whole minibatch-stddev groups a rank)
+and at batch 4 (contiguous rows, gathered at the stddev layer); a 1 x 2
+synthesis and its gradient against the unsharded port; a tiny BigGAN on the
+1 x 2 mesh (replicated) against one process; the engine on the data mesh
+against the one-device engine; and the rules of ``make_mesh`` and the
+divisibility errors, which need no ranks.
 
 The two ranks run once, in one module fixture: this file, run as a script, is
 the worker (gloo, ``file://`` rendezvous in the fixture's temporary
@@ -37,6 +40,7 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.fingerprint import (
     pipeline as pl,
 )
+from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.models import biggan as bg
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.models import stylegan2 as sg2
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.parallel import mesh as pm
 from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch.parallel import (
@@ -59,6 +63,11 @@ ACFG = AttributionConfig(steps=2, n_starts=N_, loss="mse")
 TKW = dict(img_size=16, style_dim=32, n_mlp=2, channel_max=32)
 TCFG = gan.TrainConfig(batch=8, d_reg_every=2, ema_decay=0.9)
 TRAIN_STEPS = 3
+# 8 on two ranks: two whole minibatch-stddev groups a rank; 4: one group, gathered at the stddev layer
+BATCHES = (8, 4)
+# a 32px BigGAN with attention before its last layer, the one chip_smoke.py's phase 12 solves
+TINY_BIGGAN = dict(z_dim=32, class_embed_dim=16, channel_width=8, num_classes=10, output_dim=32,
+                   attention_layer_position=2, layers=((True, 16, 16), (True, 16, 8), (True, 8, 4)), n_stats=5)
 FIELDS = ("alpha", "key_logits", "key_bits", "loss", "losses_all", "best_start")
 SERVE = ServeConfig(buckets=(2, 4))
 
@@ -96,6 +105,38 @@ def _pipe():
     return pipe, imgs
 
 
+def _biggan_pipe():
+    """The tiny BigGAN pipeline both ranks and the test build, and its two targets."""
+    pipe = pl.build_pipeline(ModelConfig(model="biggan", img_size=32, biggan_label="3"),
+                             FingerprintConfig(key_len=8, shift=24, sigma=1.0, n_pca_samples=500),
+                             generator=torch.Generator().manual_seed(1), device="cpu", want_lpips=False,
+                             biggan_cfg=bg.BigGANConfig(**TINY_BIGGAN))
+    return pipe, pl.generate_fingerprinted(pipe, 2, torch.Generator().manual_seed(2))[0]
+
+
+def _biggan_on_mesh(mesh, pipe, targets):
+    """Generation and a 2-step mse solve of the tiny BigGAN on ``mesh``, the model axis engaged."""
+    gen = ps.generate_on_mesh(mesh, ps.place_pipeline(mesh, pipe, shard_model=True), 2,
+                              torch.Generator().manual_seed(9))[0]
+    res = ps.attribute_on_mesh(mesh, pipe.gen_params, None, pipe.basis, pipe.noise, targets, mcfg=pipe.mcfg,
+                               acfg=ACFG, generator=torch.Generator().manual_seed(5), shard_model=True,
+                               **pl.solver_kwargs(pipe))
+    return gen, res
+
+
+def _with_basis(pipe, inp, prefix):
+    """``pipe`` with the basis the test process computed (a PCA run at another thread count rounds otherwise)."""
+    return dataclasses.replace(pipe, basis=dataclasses.replace(pipe.basis, **{
+        f.name: torch.from_numpy(inp[prefix + f.name]) for f in dataclasses.fields(pipe.basis)
+        if torch.is_tensor(getattr(pipe.basis, f.name))}))
+
+
+def _d_grad(state) -> np.ndarray:
+    """D's gradient in the step just taken from a fresh state: Adam's first
+    moment after one update is the gradient itself (beta1 = 0)."""
+    return torch.cat([m.reshape(-1) for m in tree_leaves(state.d_opt["mu"])]).numpy()
+
+
 def _port_draws(d, g, real):
     def phase(z, t, use_mix, noise):
         return gan.PhaseDraws(torch.from_numpy(z), torch.from_numpy(t).long(), torch.from_numpy(use_mix),
@@ -104,10 +145,16 @@ def _port_draws(d, g, real):
     return {"real": torch.from_numpy(real), "d": phase(*d), "g": phase(*g)}
 
 
-def _phase_arrays(inp, j, which):
-    n = len([k for k in inp if k.startswith(f"{which}{j}_noise")])
-    return (inp[f"{which}{j}_z"], inp[f"{which}{j}_t"], inp[f"{which}{j}_use_mix"],
-            [inp[f"{which}{j}_noise{i}"] for i in range(n)])
+def _phase_arrays(inp, batch, j, which):
+    key = f"b{batch}_{which}{j}"
+    n = len([k for k in inp if k.startswith(f"{key}_noise")])
+    return (inp[f"{key}_z"], inp[f"{key}_t"], inp[f"{key}_use_mix"], [inp[f"{key}_noise{i}"] for i in range(n)])
+
+
+def _step_draws(inp, batch, j):
+    """Step ``j``'s global draws at ``batch`` (JAX's), the reals the first ``batch`` rows of a stack of 8."""
+    return _port_draws(_phase_arrays(inp, batch, j, "d"), _phase_arrays(inp, batch, j, "g"),
+                       inp["reals"][j, :batch])
 
 
 def _worker(tmp: str, rank: int) -> None:
@@ -116,11 +163,7 @@ def _worker(tmp: str, rank: int) -> None:
     mh.initialize(f"file://{tmp}/rendezvous", 2, rank, device="cpu")
     mesh = mh.global_mesh()
     inp = dict(np.load(os.path.join(tmp, "inputs.npz")))
-    # the test process's basis and targets: a PCA run at another thread count rounds otherwise
-    pipe = _pipe()[0]
-    pipe = dataclasses.replace(pipe, basis=dataclasses.replace(pipe.basis, **{
-        f.name: torch.from_numpy(inp["basis_" + f.name]) for f in dataclasses.fields(pipe.basis)
-        if torch.is_tensor(getattr(pipe.basis, f.name))}))
+    pipe = _with_basis(_pipe()[0], inp, "basis_")
     targets = torch.from_numpy(inp["targets"])
     a0 = torch.from_numpy(inp["a0"])
     out = {"mesh_shape": np.asarray([mesh.shape["data"], mesh.shape["model"]]), "index": mesh.index("data")}
@@ -152,22 +195,36 @@ def _worker(tmp: str, rank: int) -> None:
     mh.train_multihost_chunk_runners(mesh, ModelConfig(**TKW), TCFG)
 
     tm = ModelConfig(**TKW)
-    state = pt.place_train_state(mesh, gan.init_train_state(tm, TCFG, torch.Generator().manual_seed(0), "cpu"))
-    rows = pt.batch_rows(mesh, TCFG.batch)
-    metrics = []
-    for j in range(TRAIN_STEPS):
-        draws = _port_draws(_phase_arrays(inp, j, "d"), _phase_arrays(inp, j, "g"), inp["reals"][j])
-        state, m = gan.train_step(state, gan.shard_draws(draws, rows), tm, TCFG, mesh=mesh)
-        metrics.append([float(m[k]) for k in ("d_loss", "r1", "g_loss")])
-    out["train_metrics"] = np.asarray(metrics)
-    out["train_states_equal"] = _states_equal(mesh, state)
-    run_chunk, run_chunk_data = pt.make_mesh_chunk_runners(mesh, tm, TCFG)
-    state = pt.place_train_state(mesh, gan.init_train_state(tm, TCFG, torch.Generator().manual_seed(0), "cpu"))
-    m = run_chunk(state, 3, 2)
-    reals = pt.shard_reals(mesh, inp["reals"][:1])
-    m2 = run_chunk_data(state, 3, reals)
-    out["runner_metrics"] = np.stack([np.concatenate([m[k], m2[k]]) for k in ("d_loss", "r1", "g_loss")])
-    out["runner_states_equal"] = _states_equal(mesh, state)
+    gather_rows, gathered = sg2.gather_rows, []
+
+    def counted_gather(x, mesh):
+        gathered.append(x.shape[0])
+        return gather_rows(x, mesh)
+
+    for b in BATCHES:
+        tcfg = dataclasses.replace(TCFG, batch=b)
+        out[f"rows_{b}"] = rows = pt.batch_rows(mesh, b).numpy()
+        state = pt.place_train_state(mesh, gan.init_train_state(tm, tcfg, torch.Generator().manual_seed(0), "cpu"))
+        metrics, gathered[:] = [], []
+        sg2.gather_rows = counted_gather
+        try:
+            for j in range(TRAIN_STEPS):
+                state, m = gan.train_step(state, gan.shard_draws(_step_draws(inp, b, j), torch.from_numpy(rows)), tm,
+                                          tcfg, mesh=mesh)
+                metrics.append([float(m[k]) for k in ("d_loss", "r1", "g_loss")])
+                if j == 0:  # an R1 step
+                    out[f"d_grad_{b}"] = _d_grad(state)
+        finally:
+            sg2.gather_rows = gather_rows
+        out[f"stddev_gathers_{b}"] = np.asarray(gathered)
+        out[f"train_metrics_{b}"] = np.asarray(metrics)
+        out[f"train_states_equal_{b}"] = _states_equal(mesh, state)
+        run_chunk, run_chunk_data = pt.make_mesh_chunk_runners(mesh, tm, tcfg)
+        state = pt.place_train_state(mesh, gan.init_train_state(tm, tcfg, torch.Generator().manual_seed(0), "cpu"))
+        m = run_chunk(state, 3, 2)
+        m2 = run_chunk_data(state, 3, pt.shard_reals(mesh, inp["reals"][:1, :b]))
+        out[f"runner_metrics_{b}"] = np.stack([np.concatenate([m[k], m2[k]]) for k in ("d_loss", "r1", "g_loss")])
+        out[f"runner_states_equal_{b}"] = _states_equal(mesh, state)
     out["allgather"] = mh.process_allgather(torch.full((1, 2), float(rank)))
     with pytest.raises(ValueError, match="mesh 3x1 needs 3 devices, have 2"):
         pm.make_mesh(data=3)
@@ -185,6 +242,12 @@ def _worker(tmp: str, rank: int) -> None:
         sharded, pipe, torch.from_numpy(out["gen_wx"]), torch.from_numpy(inp["cot"]), remat=True))
     keep("tp_remat", ps.attribute_on_mesh(mesh12, *common, mcfg=pipe.mcfg, acfg=ACFG, alpha_init=a0,
                                           shard_model=True, remat=True))
+    # BigGAN on the model axis: replicated, as the reference places it
+    bpipe = _with_basis(_biggan_pipe()[0], inp, "biggan_basis_")
+    assert pm.shard_generator_params(mesh12, bpipe.gen_params) is bpipe.gen_params
+    imgs, res = _biggan_on_mesh(mesh12, bpipe, torch.from_numpy(inp["biggan_targets"]))
+    out["biggan_imgs"] = imgs.numpy()
+    keep("biggan", res)
 
     # the engine on the data mesh: rank 0 runs the queue, rank 1 follows its batches
     engine = InferenceEngine(pipe, acfg=ACFG, cfg=SERVE, seed=3, mesh=mesh)
@@ -209,10 +272,10 @@ def _jax_train_draws(key, jmcfg, batch, mixing):
 
     def phase(k_lat, k_noise):
         kz, kt, kp = jax.random.split(k_lat, 3)
-        return (np.asarray(jax.random.normal(kz, (2, batch, jmcfg.style_dim))),
-                np.asarray(jax.random.randint(kt, (batch,), 1, jmcfg.n_latent)),
-                np.asarray(jax.random.bernoulli(kp, mixing, (batch,))),
-                [np.asarray(n) for n in jsg2.make_noise(k_noise, jmcfg.img_size)])
+        return (np.array(jax.random.normal(kz, (2, batch, jmcfg.style_dim))),
+                np.array(jax.random.randint(kt, (batch,), 1, jmcfg.n_latent)),
+                np.array(jax.random.bernoulli(kp, mixing, (batch,))),
+                [np.array(n) for n in jsg2.make_noise(k_noise, jmcfg.img_size)])
 
     return phase(k_lat_d, k_noise_d), phase(k_lat_g, k_noise_g)
 
@@ -252,11 +315,17 @@ def ranks(tmp_path_factory):
            "targets": targets.numpy(), "cot": np.random.default_rng(1).standard_normal((S_, 16, 16, 3)).astype(
                np.float32), **{"basis_" + f.name: getattr(pipe.basis, f.name).numpy()
                                for f in dataclasses.fields(pipe.basis) if f.name != "sd_moved"}}
-    for j in range(TRAIN_STEPS):
-        for which, (z, t, use_mix, noise) in zip("dg", _jax_train_draws(jax.random.fold_in(base, j), jtm,
-                                                                       TCFG.batch, TCFG.mixing)):
-            inp.update({f"{which}{j}_z": z, f"{which}{j}_t": t, f"{which}{j}_use_mix": use_mix,
-                        **{f"{which}{j}_noise{i}": n for i, n in enumerate(noise)}})
+    for b in BATCHES:
+        for j in range(TRAIN_STEPS):
+            for which, (z, t, use_mix, noise) in zip("dg", _jax_train_draws(jax.random.fold_in(base, j), jtm, b,
+                                                                           TCFG.mixing)):
+                key = f"b{b}_{which}{j}"
+                inp.update({f"{key}_z": z, f"{key}_t": t, f"{key}_use_mix": use_mix,
+                            **{f"{key}_noise{i}": n for i, n in enumerate(noise)}})
+    bpipe, btargets = _biggan_pipe()
+    inp.update({"biggan_targets": btargets.numpy(), **{"biggan_basis_" + f.name: getattr(bpipe.basis, f.name).numpy()
+                                                       for f in dataclasses.fields(bpipe.basis)
+                                                       if torch.is_tensor(getattr(bpipe.basis, f.name))}})
     np.savez(os.path.join(tmp, "inputs.npz"), **inp)
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), tmp, str(r)], cwd=ROOT, env=env,
@@ -289,13 +358,14 @@ def ranks(tmp_path_factory):
     tm = ModelConfig(**TKW)
     state = gan.init_train_state(tm, TCFG, torch.Generator().manual_seed(0), "cpu")
     g, d = (jax.tree.map(lambda v: jnp.asarray(v.numpy()), t) for t in (state.g_params, state.d_params))
-    jtcfg = jgan.TrainConfig(batch=TCFG.batch, d_reg_every=TCFG.d_reg_every, ema_decay=TCFG.ema_decay)
-    opt = jgan._optimizer(jtcfg)
-    jstate = jtrain.place_train_state(jmesh, jgan.TrainState(
-        step=jnp.zeros((), jnp.int32), g_params=g, d_params=d, g_ema=g, g_opt=opt.init(g), d_opt=opt.init(d)))
-    _, run_chunk_data = jtrain.make_mesh_chunk_runners(jmesh, jtm, jtcfg, external_data=True)
-    _, jm = run_chunk_data(jstate, base, jnp.int32(0), jtrain.shard_reals(jmesh, inp["reals"]))
-    jax_side["train_metrics"] = np.stack([np.asarray(jm[k]) for k in ("d_loss", "r1", "g_loss")], axis=1)
+    for b in BATCHES:
+        jtcfg = jgan.TrainConfig(batch=b, d_reg_every=TCFG.d_reg_every, ema_decay=TCFG.ema_decay)
+        opt = jgan._optimizer(jtcfg)
+        jstate = jtrain.place_train_state(jmesh, jgan.TrainState(
+            step=jnp.zeros((), jnp.int32), g_params=g, d_params=d, g_ema=g, g_opt=opt.init(g), d_opt=opt.init(d)))
+        _, run_chunk_data = jtrain.make_mesh_chunk_runners(jmesh, jtm, jtcfg, external_data=True)
+        _, jm = run_chunk_data(jstate, base, jnp.int32(0), jtrain.shard_reals(jmesh, inp["reals"][:, :b]))
+        jax_side[f"train_metrics_{b}"] = np.stack([np.asarray(jm[k]) for k in ("d_loss", "r1", "g_loss")], axis=1)
 
     logs = [p.communicate(timeout=300)[0] for p in procs]
     assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
@@ -303,19 +373,23 @@ def ranks(tmp_path_factory):
     jpipe = jsolver.place_pipeline(jmesh, jpl.Pipeline(mcfg=jmcfg, fpcfg=None, gen_params=jgen, basis=jbasis,
                                                        pca=None, noise=tuple(jnoise)))
     jax_side["imgs"] = np.asarray(jpl.synthesize(jpipe, jpm.shard_batch(jmesh, jnp.asarray(outs[0]["gen_wx"]))))
-    return {"pipe": pipe, "targets": targets, "outs": outs, "jax": jax_side}
+    return {"pipe": pipe, "targets": targets, "outs": outs, "jax": jax_side, "inp": inp,
+            "biggan": (_with_basis(bpipe, inp, "biggan_basis_"), btargets)}
 
 
 def test_both_ranks_hold_the_global_results(ranks):
     o0, o1 = ranks["outs"]
     assert list(o0["mesh_shape"]) == [2, 1] and (int(o0["index"]), int(o1["index"])) == (0, 1)
     for k in o0:
-        if k not in ("index", "tp_grad", "tp_remat_grad") and not k.startswith("serve"):
+        if k not in ("index", "tp_grad", "tp_remat_grad") and not k.startswith(("serve", "rows_")):
             np.testing.assert_array_equal(o0[k], o1[k], err_msg=k)
     for k in ("tp_grad", "tp_remat_grad"):  # summed in rank order
         np.testing.assert_allclose(o0[k], o1[k], rtol=1e-6, atol=1e-7)
     assert not any(k.startswith("serve") for k in o1)  # only rank 0 answers requests
-    assert o0["train_states_equal"] and o0["runner_states_equal"]
+    assert all(o0[f"{tag}_states_equal_{b}"] for tag in ("train", "runner") for b in BATCHES)
+    # batch 8: two whole minibatch-stddev groups a rank (columns 0 and 1); batch 4: contiguous rows
+    assert [list(o["rows_8"]) for o in (o0, o1)] == [[0, 2, 4, 6], [1, 3, 5, 7]]
+    assert [list(o["rows_4"]) for o in (o0, o1)] == [[0, 1], [2, 3]]
     np.testing.assert_array_equal(o0["allgather"], [[0, 0], [1, 1]])
     for f in FIELDS:  # the multi-host path is the same solve from each rank's own rows
         np.testing.assert_array_equal(o0[f"multihost_{f}"], o0[f"on_mesh_{f}"], err_msg=f)
@@ -376,29 +450,53 @@ def test_generate_on_mesh_matches_single_process_and_reference_synthesis(ranks, 
     np.testing.assert_allclose(o["gen_imgs"], ranks["jax"]["imgs"], atol=1e-4)
 
 
-def test_data_parallel_training_matches_the_reference_mesh_step(ranks):
+@pytest.mark.parametrize("batch", BATCHES)
+def test_data_parallel_training_matches_the_reference_mesh_step(ranks, batch):
     """Three steps (R1 at steps 0 and 2) from the same weights with JAX's draws:
-    the port's two ranks (each whole minibatch-stddev groups, gradients
-    averaged) against the reference package's mesh chunk runner on two
-    devices.  Metrics, not parameters, as ``tests/test_training_mesh.py``
-    compares them (Adam's first updates are ~lr*sign(g)); 1e-4 relative,
-    the tolerance of the port's one-step comparison (test_torch_training.py)."""
-    got, want = ranks["outs"][0]["train_metrics"], ranks["jax"]["train_metrics"]
+    the port's two ranks (gradients averaged; at batch 8 each rank holds
+    whole minibatch-stddev groups, at batch 4 contiguous rows gathered at the
+    stddev layer) against the reference package's mesh chunk runner on two
+    devices, whose GSPMD computes the stddev over the global batch.  Metrics,
+    not parameters, as ``tests/test_training_mesh.py`` compares them (Adam's
+    first updates are ~lr*sign(g)); 1e-4 relative, the tolerance of the
+    port's one-step comparison (test_torch_training.py).  Both ranks end in
+    the same state."""
+    o = ranks["outs"][0]
+    got, want = o[f"train_metrics_{batch}"], ranks["jax"][f"train_metrics_{batch}"]
     assert got.shape == (TRAIN_STEPS, 3) and (got[[0, 2], 1] > 0).all() and got[1, 1] == 0
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    assert o[f"train_states_equal_{batch}"]
+    # the stddev layer's row gathers: none with whole groups, else one a discriminator pass (3 a step) of 2 rows
+    assert list(o[f"stddev_gathers_{batch}"]) == ([] if batch == 8 else [2] * 3 * TRAIN_STEPS)
 
 
-def test_mesh_chunk_runners_match_single_process_steps(ranks, direct_cpu_convs):
+@pytest.mark.parametrize("batch", BATCHES)
+def test_mesh_chunk_runners_match_single_process_steps(ranks, direct_cpu_convs, batch):
     """``make_mesh_chunk_runners`` draws every step's global batch from (seed,
     step) and keeps the rank's rows: two synthetic steps and one on given reals
     equal ``run_steps`` in one process (1e-5 relative)."""
-    tm = ModelConfig(**TKW)
-    state = gan.init_train_state(tm, TCFG, torch.Generator().manual_seed(0), "cpu")
-    m = gan.run_steps(state, 3, 2, tm, TCFG)
-    m2 = gan.run_steps(state, 3, 1, tm, TCFG, reals=[torch.from_numpy(
-        np.random.default_rng(0).uniform(-1, 1, (TRAIN_STEPS, 8, 16, 16, 3)).astype(np.float32)[0])])
+    tm, tcfg = ModelConfig(**TKW), dataclasses.replace(TCFG, batch=batch)
+    state = gan.init_train_state(tm, tcfg, torch.Generator().manual_seed(0), "cpu")
+    m = gan.run_steps(state, 3, 2, tm, tcfg)
+    m2 = gan.run_steps(state, 3, 1, tm, tcfg, reals=[torch.from_numpy(ranks["inp"]["reals"][0, :batch])])
     want = np.stack([np.concatenate([m[k], m2[k]]) for k in ("d_loss", "r1", "g_loss")])
-    np.testing.assert_allclose(ranks["outs"][0]["runner_metrics"], want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(ranks["outs"][0][f"runner_metrics_{batch}"], want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_data_parallel_d_gradient_with_r1_matches_single_process(ranks, direct_cpu_convs, batch):
+    """D's gradient of an R1 step (adversarial loss + R1, a second derivative
+    through the discriminator) averaged over the two ranks equals the
+    single-process gradient on the global batch (1e-5 of its scale).  At
+    batch 4 it runs through the row gather's backward and that backward's own
+    backward: each rank's R1 includes the other rank's logits."""
+    tm, tcfg = ModelConfig(**TKW), dataclasses.replace(TCFG, batch=batch)
+    state = gan.init_train_state(tm, tcfg, torch.Generator().manual_seed(0), "cpu")
+    state, m = gan.train_step(state, _step_draws(ranks["inp"], batch, 0), tm, tcfg)
+    want = _d_grad(state)
+    assert float(m["r1"]) > 0
+    np.testing.assert_allclose(ranks["outs"][0][f"d_grad_{batch}"], want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
 
 
 def test_model_axis_synthesis_and_gradient_match_the_unsharded_port(ranks, direct_cpu_convs):
@@ -428,6 +526,21 @@ def test_model_axis_with_remat_gives_what_it_gives_without(ranks):
         np.testing.assert_array_equal(o[f"tp_remat_{f}"], o[f"tp_{f}"], err_msg=f)
     for f in ("loss", "losses_all", "alpha"):
         np.testing.assert_allclose(o[f"tp_remat_{f}"], o[f"tp_{f}"], rtol=1e-6, atol=1e-7, err_msg=f)
+
+
+def test_biggan_on_the_model_axis_matches_one_process(ranks, direct_cpu_convs):
+    """``--mesh_model 2`` with BigGAN: the reference's placement shards no
+    BigGAN leaf, so the 1 x 2 mesh replicates the generator and each rank runs
+    the whole network.  Generation and a 2-step mse solve equal the port's
+    single-process ``generate_on_mesh`` / ``attribute_on_mesh`` (1e-6); the
+    unsharded BigGAN is held against JAX in ``tests/test_torch_biggan.py``."""
+    o = ranks["outs"][0]
+    imgs, res = _biggan_on_mesh(pm.make_mesh(), *ranks["biggan"])
+    np.testing.assert_allclose(o["biggan_imgs"], imgs.numpy(), rtol=1e-6, atol=1e-6)
+    for f in ("key_bits", "best_start"):
+        np.testing.assert_array_equal(o[f"biggan_{f}"], getattr(res, f).numpy(), err_msg=f)
+    for f in ("loss", "losses_all", "alpha", "key_logits"):
+        np.testing.assert_allclose(o[f"biggan_{f}"], getattr(res, f).numpy(), rtol=1e-6, atol=1e-6, err_msg=f)
 
 
 def test_mesh_engine_serves_what_the_one_device_engine_serves(ranks, direct_cpu_convs):
@@ -476,8 +589,8 @@ def test_make_mesh_rules_and_divisibility_errors_without_ranks():
     with pytest.raises(ValueError, match="batch 6 not divisible by data axis 4"):
         pt.make_mesh_chunk_runners(pm.Mesh(np.arange(4)[:, None], {"data": None, "model": None}, 0, None),
                                    ModelConfig(**TKW), dataclasses.replace(TCFG, batch=6))
-    with pytest.raises(ValueError, match="minibatch-stddev groups of 4 do not split over 2 ranks"):
-        pt.make_mesh_chunk_runners(two, ModelConfig(**TKW), dataclasses.replace(TCFG, batch=4))
+    # batch 4 on two ranks: one minibatch-stddev group, so contiguous rows (gathered at the stddev layer)
+    assert pt.batch_rows(two, 4).tolist() == [0, 1] and sg2.stddev_gathers(4, 2) and not sg2.stddev_gathers(8, 2)
     with pytest.raises(ValueError, match="pass generator= or alpha_init="):
         ps.attribute_on_mesh(two, pipe.gen_params, None, pipe.basis, pipe.noise, targets, mcfg=pipe.mcfg, acfg=ACFG)
     assert mh.process_index() == 0 and mh.process_count() == 1 and mh.global_mesh().shape["data"] == 1
