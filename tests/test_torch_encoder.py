@@ -57,16 +57,6 @@ D_ALPHA, KEY_LEN = 24, 8
 ECFG = enc.EncoderConfig(width=8, max_width=16, head_dim=16)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on a few cores, and a pool per process oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def jinit():
     """The JAX package's ``init_encoder`` at 32px (one compile).  At width 8 /

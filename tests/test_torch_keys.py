@@ -30,16 +30,6 @@ from attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_torch
 )
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on a few cores, and a pool per process oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("issuance", ["rejection", "rm"])
 def test_issuance_and_decoding_match_jax(issuance):
     if issuance == "rm":

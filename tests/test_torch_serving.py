@@ -58,16 +58,6 @@ ACFG = AttributionConfig(steps=60, n_starts=4, lr=0.2, loss="mse")  # recovers t
 FAST = dataclasses.replace(ACFG, steps=2)  # the same kernels and wiring, not converged
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on a few cores, and a pool per process oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def pipe():
     return pl.build_pipeline(MCFG, FPCFG, generator=torch.Generator().manual_seed(0), device="cpu",
