@@ -16,8 +16,9 @@ per call.
 
 The solver's distance head (:func:`distance_from_raw_features`) has the
 reference's analytic backward: it recomputes the normalize/diff chain from
-the raw feature and the saved norm, and treats the cached target features
-and the lin heads as constants.
+the raw feature, and treats the cached target features and the lin heads as
+constants.  On a CUDA tensor each direction is one launch of
+``ops/lpips_head_cuda.py``'s kernel; on the CPU its plain chain.
 
 The backbone may instead be the trained StyleGAN2 discriminator
 (``losses/disc_percept.py``, params with a ``"disc"`` key), or the
@@ -44,6 +45,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.lpips_head_cuda import (
+    lpips_head_backward,
+    lpips_head_forward,
+    lpips_head_plain_backward,
+    lpips_head_plain_forward,
+)
 from ..ops.pool import maxpool2x2
 from ..ops.vgg_cuda import conv3x3_relu
 from ..ops.vgg_slice_cuda import vgg_slice1
@@ -227,29 +234,28 @@ class _FusedSliceDistance(torch.autograd.Function):
     hand-derived backward; ``t`` and ``lin`` get no gradient.  The norm, the
     squares and the sums are float32; the normalized feature is rounded to
     f's dtype and the difference taken there, as the reference does (d is
-    float32, df in f's dtype)."""
+    float32, df in f's dtype).  A CUDA ``f`` runs one launch of
+    ``ops/lpips_head_cuda.py``'s kernel each way (the backward recomputes the
+    norm from f); on the CPU the plain chain runs and keeps the norm."""
 
     @staticmethod
     def forward(ctx, f, t, lin, eps):
-        f32 = f.float()
-        norm = torch.sqrt(torch.sum(f32 * f32, dim=-1, keepdim=True))
-        fn = (f32 / (norm + eps)).to(f.dtype)
-        d = torch.mean(torch.sum((fn - t).float() ** 2 * lin, dim=-1), dim=(-2, -1))
-        ctx.save_for_backward(f, t, lin, norm)
-        ctx.eps = eps
-        return d
+        ctx.eps, ctx.plain = eps, f.device.type == "cpu"
+        if ctx.plain:
+            d, norm = lpips_head_plain_forward(f, t, lin, eps)
+            ctx.save_for_backward(f, t, lin, norm)
+            return d
+        f = f.contiguous()
+        ctx.save_for_backward(f, t, lin)
+        return lpips_head_forward(f, t, lin, eps)
 
     @staticmethod
     def backward(ctx, g):
-        f, t, lin, norm = ctx.saved_tensors
-        f32 = f.float()
-        denom = norm + ctx.eps
-        e = ((f32 / denom).to(f.dtype) - t).float()
-        hw = f.shape[-3] * f.shape[-2]
-        u = e * (lin * (2.0 / hw)) * g[..., None, None, None].float()
-        s = torch.sum(u * f32, dim=-1, keepdim=True)
-        df = u / denom - f32 * (s / (norm * denom * denom))
-        return df.to(f.dtype), None, None, None
+        if ctx.plain:
+            df = lpips_head_plain_backward(*ctx.saved_tensors, g, ctx.eps)
+        else:
+            df = lpips_head_backward(*ctx.saved_tensors, g, ctx.eps)
+        return df, None, None, None
 
 
 def distance_from_raw_features(params, raw_feats, target_norm_feats, eps: float = 1e-10):

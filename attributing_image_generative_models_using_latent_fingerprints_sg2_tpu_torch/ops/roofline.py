@@ -13,7 +13,9 @@ operations over the peak rate of their kind:
 - ``conv``  matrix-product arithmetic: in float32 the better of the CUDA-core
             rate and the tensor cores' TF32 rate taken three times (the split
             that keeps float32 accuracy, ``ops/tf32.py``); in bfloat16 the
-            tensor cores' dense bf16 rate.
+            tensor cores' dense bf16 rate;
+- ``vector`` elementwise arithmetic with channel sums (the LPIPS distance
+            head): the float32 CUDA-core rate, in both dtypes.
 
 Peaks are NVIDIA's published H100 SXM figures (dense, 700 W).
 """
@@ -54,6 +56,13 @@ def conv3x3_shapes(img_size: int = 256) -> Tuple[Tuple[int, int, int], ...]:
     return ((128, img_size // 2, 1), (256, img_size // 4, 2), (512, img_size // 8, 2), (512, img_size // 16, 3))
 
 
+def lpips_head_shapes(img_size: int = 256) -> Tuple[Tuple[int, int], ...]:
+    """(C, H) of the five VGG16 slices the LPIPS distance head runs on, one
+    launch each way a slice: relu1_2 at img_size .. relu5_3 at img_size / 16."""
+    return ((64, img_size), (128, img_size // 2), (256, img_size // 4), (512, img_size // 8),
+            (512, img_size // 16))
+
+
 def chain_levels(img_size: int = 256) -> int:
     """Levels of the ToRGB skip chain: one an upsample block, log2(img_size) - 2."""
     return int(math.log2(img_size)) - 2
@@ -77,9 +86,11 @@ def step_launches(dtype: str = "float32", img_size: int = 256, remat: bool = Fal
     the backward, ``remat_lpips`` LPIPS's forward kernels."""
     n = chain_levels(img_size)
     fwd_convs = sum(k for _, _, k in conv3x3_shapes(img_size))
+    heads = len(lpips_head_shapes(img_size))  # outside the checkpoint: once each way a slice
     launches = {"blur4": (3 if remat else 2) * n, "upblur4": n, "upblur4_adj": n,
                 "conv3x3_relu": (3 if remat_lpips else 2) * fwd_convs,
-                "vgg_slice1_fwd": 2 if remat_lpips else 1, "vgg_slice1_bwd": 1}
+                "vgg_slice1_fwd": 2 if remat_lpips else 1, "vgg_slice1_bwd": 1,
+                "lpips_head_fwd": heads, "lpips_head_bwd": heads}
     if dtype != "bfloat16":
         return launches
     # in bf16 the ToRGB skip chain is one launch each way (ops/upfirdn2d_cuda.py::upblur4_chain)
@@ -108,12 +119,12 @@ def train_launches(img_size: int, r1: bool) -> Dict[str, int]:
     twice; upblur4_adj: G's backward."""
     n = int(math.log2(img_size)) - 2
     return {"blur4": 3 * n + 12 * n + (4 * n if r1 else 0), "upblur4": 2 * n, "upblur4_adj": n,
-            "conv3x3_relu": 0, "vgg_slice1_fwd": 0, "vgg_slice1_bwd": 0}
+            "conv3x3_relu": 0, "vgg_slice1_fwd": 0, "vgg_slice1_bwd": 0, "lpips_head_fwd": 0, "lpips_head_bwd": 0}
 
 
 def _counts(flops: float, elems: float, kind: str, dtype: str = "float32") -> Dict[str, object]:
     """Bound of ``flops`` operations of ``kind`` on ``elems`` elements moved in ``dtype``."""
-    if kind == "fir":
+    if kind in ("fir", "vector"):
         rate = PEAK_F32
     else:
         rate = PEAK_BF16 if dtype == "bfloat16" else CONV_RATE
@@ -181,6 +192,23 @@ def slice1_bwd(n: int, h: int, w: int, dtype: str = "float32") -> Dict[str, obje
     return _counts(flops, 1.0 * n * h * w * (64 + 64 + 3 + 3) + 9 * 64 * (3 + 64) + 64, "conv", dtype)
 
 
+def lpips_head_fwd(n: int, c: int, h: int, w: int, dtype: str = "float32", targets: int = 1) -> Dict[str, object]:
+    """The distance head's forward over n chains of one sample: reads the n
+    feature maps and the ``targets`` maps once (the target broadcast over the
+    chains); the norm (2 flops an element), the quotient, two roundings' worth
+    of difference, its square times lin and the sum (5): 7 flops an element."""
+    elems = float(n) * h * w * c
+    return _counts(7.0 * elems, elems + float(targets) * h * w * c, "vector", dtype)
+
+
+def lpips_head_bwd(n: int, c: int, h: int, w: int, dtype: str = "float32", targets: int = 1) -> Dict[str, object]:
+    """Its backward: reads the n maps and the targets once, writes df once; the
+    norm again (2), the quotient and difference (2), u (2), s_px (2), df (3): 11
+    flops an element."""
+    elems = float(n) * h * w * c
+    return _counts(11.0 * elems, 2 * elems + float(targets) * h * w * c, "vector", dtype)
+
+
 def main_path(name: str, n: int, dtype: str = "float32",
               img_size: int = 256) -> Sequence[Tuple[str, Dict[str, object]]]:
     """(shape label, counts) of every distinct launch shape of kernel ``name``
@@ -211,6 +239,9 @@ def main_path(name: str, n: int, dtype: str = "float32",
         return [(f"C3_H{img_size}", slice1_fwd(n, img_size, img_size, dtype))]
     if name == "vgg_slice1_bwd":
         return [(f"C3_H{img_size}", slice1_bwd(n, img_size, img_size, dtype))]
+    if name in ("lpips_head_fwd", "lpips_head_bwd"):  # n chains against one target
+        fn = lpips_head_fwd if name == "lpips_head_fwd" else lpips_head_bwd
+        return [(f"C{c}_H{h}", fn(n, c, h, h, dtype)) for c, h in lpips_head_shapes(img_size)]
     raise KeyError(name)
 
 

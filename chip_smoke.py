@@ -38,7 +38,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                1024^2 image: ``blur4`` up to C 32 x 1024^2, ``conv3x3_relu``
                up to C 128 x 512^2, the slice at 1024^2, the skip chain over 8
                levels) at batch 2, held the same way, each launch twice and the
-               two results bitwise equal.
+               two results bitwise equal.  The LPIPS distance head
+               (``lpips_head``: its Function through autograd at batch 2, its
+               forward and backward launches at each batch, no library call)
+               runs with the rest, held in float32 within ``HEAD_RTOL`` of
+               max|plain| (its values lie far below TOL's floor of 1), and once more at the two attribution cells'
+               shapes (20 chains, 256px float32 and 1024px bf16: ``cell_``
+               keys, with back-to-back times).
 3. recovery -- planted keys recovered through the kernels on a tiny
                generator (32px, mse loss, 300 steps, 4 restarts, 3 samples).
 4. generate -- ``cli.generate`` at full width (256px, style_dim 512, n_mlp 8,
@@ -99,7 +105,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                their keys come back verbatim) coalesce into fewer batches, then
                two bursts of 16 concurrent PNG requests (images/s at bucket 4,
                the server cold and warm), /v1/attribute,
-               /v1/identify (all six kernels launched) and /v1/stats, with
+               /v1/identify (every float32 kernel launched) and /v1/stats, with
                client-side latency per route; the layers under it alone (the
                engine solo and as a burst of 16 without HTTP, the server's PNG
                and float-list encodings of one image); then the engine's batch
@@ -111,7 +117,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                on the last 32 of its 128 axes, perceptual): ``cli.generate
                --model biggan`` writes its PNGs; ``cli.attribute --model
                biggan`` (2 samples x 4 restarts, 20 steps) launches the LPIPS
-               kernels (``conv3x3_relu``, both ``vgg_slice1``) and none of the
+               kernels (``conv3x3_relu``, both ``vgg_slice1``, the distance
+               head both ways) and none of the
                StyleGAN2 FIR kernels; the 16-chain solve step alone (CUDA
                events, median of 5), its peak memory and its device time by
                kernel (``torch.profiler``), generation images/s at
@@ -121,7 +128,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 13. model_attribution -- ``cli.model_attribute --random_init`` at full width:
                two StyleGAN2s at 256px, self-test of 2 targets, ``--calibrate 1``,
                4 restarts x 20 steps, perceptual, ``--out`` JSON; its loss matrix,
-               decisions, wall time and launch counts (all six kernels).  Then
+               decisions, wall time and launch counts (every float32 kernel).  Then
                ``attribute_model`` over a mixed registry {StyleGAN2-256,
                BigGAN-deep-256} with one key length, one planted target of each:
                its loss matrix.  Then the tiny configuration: a registry of two
@@ -195,7 +202,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                timed beside its bound.  It prints the backend, each rank's
                device and the phase's seconds.
 
-bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the six kernels):
+bfloat16 (``--dtype bfloat16``, the ``*_bf16`` variants of the eight kernels):
 2.  the launch-only rows of phase 2 again in bf16 at batch 2 and 16 (``_bf16``
     names): each kernel within 0.03 * max|plain| of its plain bf16 version,
     and (but the slice's backward, whose ReLU masks differ) within 0.03 of
@@ -283,6 +290,10 @@ PORT = "attributing_image_generative_models_using_latent_fingerprints_sg2_tpu_to
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 TOL = 1e-4
 BF16_TOL = 0.03  # bf16 kernel vs its plain bf16 version: max|err| / max|plain| (the reference's bf16 kernel bound)
+# the LPIPS head in float32 vs its plain chain: max|err| / max|plain|.  Its d is ~1e-3 - 1e-2
+# and its df ~1e-9 - 1e-8, so TOL's floor of 1 would hold neither; the kernel rounds where the
+# plain chain rounds and only its sums run in another order (tests/test_torch_lpips_head.py)
+HEAD_RTOL = 1e-5
 BF16 = None  # name suffix of a kernel's bfloat16 variant: ops/roofline.py's BF16_SUFFIX, read in main()
 # the tiny converging configuration of the reference's end-to-end test
 TINY = dict(img_size=32, style_dim=64, n_mlp=3, channel_max=64)
@@ -371,9 +382,10 @@ def median_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def compare(torch, kernel_fn, plain_fn, x, cot, masked_plain=None, keep=None):
+def compare(torch, kernel_fn, plain_fn, x, cot, masked_plain=None, keep=None, rtol=None):
     """Forward and dx (autograd on both sides) of ``kernel_fn`` vs ``plain_fn``
-    on x; times of both.
+    on x; times of both.  Each is held within ``TOL`` of max(1, max|plain|),
+    or, given ``rtol``, within ``rtol`` of max|plain| itself.
 
     An op that ends in a ReLU masks its cotangent by [y > 0], and two forwards
     that differ by rounding disagree on that mask wherever y is within
@@ -400,11 +412,11 @@ def compare(torch, kernel_fn, plain_fn, x, cot, masked_plain=None, keep=None):
         check(errs["left_out"] <= 0.01 * keep.numel(), f"{errs['left_out']} of {keep.numel()} dx values left out")
         dk, dref = dk * keep, dref * keep
     for name, k, p in (("fwd", yk, yp), ("dx", dk, dref)):
-        err = (k - p).abs().max().item()
-        scale = max(1.0, p.abs().max().item())
+        err, pmax = (k - p).abs().max().item(), p.abs().max().item()
+        tol, scale = (TOL, max(1.0, pmax)) if rtol is None else (rtol, pmax)
         check(bool(torch.isfinite(k).all()), f"non-finite {name}")
-        check(err <= TOL * scale, f"{name} error {err:.3e} > {TOL} * {scale:.3e}")
-        errs[name] = err
+        check(err <= tol * scale, f"{name} error {err:.3e} > {tol} * {scale:.3e}")
+        errs[name], errs["max_abs_plain_" + name] = err, pmax
     with torch.no_grad():
         t = {
             "ms_fwd": median_ms(torch, lambda: kernel_fn(x)),
@@ -413,6 +425,14 @@ def compare(torch, kernel_fn, plain_fn, x, cot, masked_plain=None, keep=None):
     t["ms_bwd"] = median_ms(torch, lambda: torch.autograd.grad(yk, xr, cot, retain_graph=True))
     t["plain_ms_bwd"] = median_ms(torch, lambda: torch.autograd.grad(yp, xr, cot, retain_graph=True))
     return errs, t
+
+
+def lpips_head_function():
+    """The solver's distance-head Function (``losses/lpips.py``): on a CUDA
+    tensor one launch of ``lpips_head_fwd`` / ``_bwd`` (``_bf16``) each way."""
+    import importlib
+
+    return importlib.import_module(f"{PORT}.losses.lpips")._FusedSliceDistance
 
 
 def conv1_sign_keep(torch, vgg_cuda, x, w1, b1):
@@ -431,7 +451,7 @@ def conv1_sign_keep(torch, vgg_cuda, x, w1, b1):
 
 
 def phase_kernels(torch, mods, disc_shapes):
-    up_cuda, vgg_cuda, slice_cuda, upf = mods
+    up_cuda, vgg_cuda, slice_cuda, upf, head_cuda = mods
     g = torch.Generator().manual_seed(0)
     dev = "cuda"
 
@@ -480,11 +500,24 @@ def phase_kernels(torch, mods, disc_shapes):
                       lambda v: slice_cuda.vgg_slice1_plain(v, *ws), x, rnd(2, 256, 256, 64),
                       slice_masked_plain, conv1_sign_keep(torch, vgg_cuda, x, ws[0], ws[1])))
 
+    # the LPIPS distance head at the 256px path's five slices, 2 chains against one target:
+    # the Function the solver calls (one kernel launch each way) against autograd through the
+    # plain chain
+    lin_eps = 1e-10
+    for c, h in ((64, 256), (128, 128), (256, 64), (512, 32), (512, 16)):
+        t = torch.relu(rnd(1, 1, h, h, c))
+        t, lin = t / (t.norm(dim=-1, keepdim=True) + lin_eps), torch.rand(c, generator=g).to(dev) / c
+        cases.append(("lpips_head", f"C{c}_H{h}",
+                      lambda v, t=t, lin=lin: lpips_head_function().apply(v, t, lin, lin_eps),
+                      lambda v, t=t, lin=lin: head_cuda.lpips_head_plain_forward(v, t, lin, lin_eps)[0],
+                      torch.relu(rnd(1, 2, h, h, c)) * 3.0, rnd(1, 2)))
+
     per_kernel = {}
     for name, shape, kfn, pfn, x, cot, *masks in cases:
-        errs, t = compare(torch, kfn, pfn, x, cot, *masks)
+        errs, t = compare(torch, kfn, pfn, x, cot, *masks, rtol=HEAD_RTOL if name == "lpips_head" else None)
         emit({"phase": "kernels", "kernel": name, "shape": shape, "batch": 2,
               "max_abs_err_fwd": errs["fwd"], "max_abs_err_dx": errs["dx"],
+              "max_abs_plain_fwd": errs["max_abs_plain_fwd"], "max_abs_plain_dx": errs["max_abs_plain_dx"],
               "max_abs_err_dx_own_masks": errs["dx_own_masks"], "mask_flips": errs["mask_flips"],
               "left_out": errs["left_out"], **t})
         agg = per_kernel.setdefault(name, {"err_fwd": 0.0, "err_dx": 0.0, "ms_fwd": 0.0,
@@ -511,7 +544,7 @@ def launch_cases(torch, mods, n, rnd, act=None, img_size=256):
     then counted in bf16.  The discriminator's rows come with the 256px path only."""
     import torch.nn.functional as F
 
-    up_cuda, vgg_cuda, slice_cuda, upf, roof = mods
+    up_cuda, vgg_cuda, slice_cuda, upf, head_cuda, roof = mods
     k1 = upf.split_symmetric_4tap(upf.make_kernel((1, 3, 3, 1)) * 4.0)
     kt = torch.tensor(k1, device="cuda")
     bf16_route = act is not None  # the bf16 cases and their float32 references: the chain rows too
@@ -654,6 +687,31 @@ def launch_cases(torch, mods, n, rnd, act=None, img_size=256):
 
     cases.append(("vgg_slice1_bwd", f"C3_H{hs}", kernel_bwd, plain_bwd, library_bwd,
                   roof.slice1_bwd(n, hs, hs, dname), check_bwd))
+    return cases + head_cases(torch, head_cuda, roof, n, rnd, act, dname, img_size)
+
+
+def head_cases(torch, head_cuda, roof, n, rnd, act, dname, img_size=256):
+    """The LPIPS distance head's launches, forward and backward, at the five
+    slices of ``img_size`` for n chains against one target (as the solver
+    hands them over: t [1, 1, h, w, C] broadcast over the chains), with the
+    plain chain beside them.  No PyTorch call computes the head, so there is
+    no library time (None).  The features and the target take ``act``; lin
+    and the cotangent of d stay float32, as in the solver."""
+    eps, cases = 1e-10, []
+    for c, h in roof.lpips_head_shapes(img_size):
+        f = act(torch.relu(rnd(1, n, h, h, c)) * 3.0)
+        t = torch.relu(rnd(1, 1, h, h, c))
+        t = act(t / (t.norm(dim=-1, keepdim=True) + eps))
+        lin, g = rnd(c).abs() / c, rnd(1, n)
+        norm = head_cuda.lpips_head_plain_forward(f, t, lin, eps)[1]
+        kf = lambda f=f, t=t, lin=lin: head_cuda.lpips_head_forward(f, t, lin, eps)
+        pf = lambda f=f, t=t, lin=lin: head_cuda.lpips_head_plain_forward(f, t, lin, eps)[0]
+        cases.append(("lpips_head_fwd", f"C{c}_H{h}", kf, pf, None, roof.lpips_head_fwd(n, c, h, h, dname),
+                      lambda kf=kf, pf=pf: (kf(), pf(), None)))
+        kb = lambda f=f, t=t, lin=lin, g=g: head_cuda.lpips_head_backward(f, t, lin, g, eps)
+        pb = lambda f=f, t=t, lin=lin, g=g, norm=norm: head_cuda.lpips_head_plain_backward(f, t, lin, norm, g, eps)
+        cases.append(("lpips_head_bwd", f"C{c}_H{h}", kb, pb, None, roof.lpips_head_bwd(n, c, h, h, dname),
+                      lambda kb=kb, pb=pb: (kb(), pb(), None)))
     return cases
 
 
@@ -775,7 +833,7 @@ def phase_launch_times(torch, mods, per_kernel):
                     kname = name + (BF16 if dtype == "bfloat16" else "")
                     line = {"phase": "launch", "kernel": kname, "shape": shape, "batch": n, "img_size": img,
                             "ms": median_ms(torch, kfn), "plain_ms": median_ms(torch, pfn),
-                            "library_ms": median_ms(torch, lfn), **counts}
+                            "library_ms": None if lfn is None else median_ms(torch, lfn), **counts}
                     if shape.startswith("chain_"):  # the launches' host work hides the device time: both
                         line["back_to_back_ms"] = back_to_back_ms(torch, kfn)
                         line["device_ms"] = device_ms_per_call(torch, kfn, calls=10)
@@ -798,12 +856,14 @@ def phase_launch_times(torch, mods, per_kernel):
                             diff = diff * keep
                         err, pmax = diff.max().item(), p.float().abs().max().item()
                         check(bool(torch.isfinite(k).all()), f"{kname} {shape}: non-finite result")
+                        line["max_abs_plain"] = pmax
                         if dtype == "float32":
-                            scale = max(1.0, pmax)
-                            check(err <= TOL * scale,
-                                  f"{kname} {shape} batch {n}: error {err:.3e} > {TOL} * {scale:.3e}")
+                            tol, scale = (HEAD_RTOL, pmax) if name.startswith("lpips_head") else (TOL, max(1.0, pmax))
+                            check(err <= tol * scale,
+                                  f"{kname} {shape} batch {n}: error {err:.3e} > {tol} * {scale:.3e}")
                         else:
-                            check(k.dtype == torch.bfloat16 and err < BF16_TOL * pmax,
+                            # the kernels' dtype, and the plain version's: bf16 but for the head's d (float32)
+                            check(k.dtype == p.dtype and err < BF16_TOL * pmax,
                                   f"{kname} {shape} batch {n}: error {err:.3e} >= {BF16_TOL} * {pmax:.3e}")
                             rk, rp, rkeep = ref[-1]()
                             rd = (k.float() - rp.float()).abs()
@@ -831,12 +891,49 @@ def phase_launch_times(torch, mods, per_kernel):
                         if img == 1024:
                             prefix = "px1024_" + prefix
                         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                            agg[prefix + key] = agg.get(prefix + key, 0.0) + line[key]
+                            if line[key] is not None:
+                                agg[prefix + key] = agg.get(prefix + key, 0.0) + line[key]
                         if prefix in ("", "px1024_"):
                             by = agg.setdefault(prefix + "bound_by", {})
                             by[line["bound_by"]] = by.get(line["bound_by"], 0.0) + line["bound_ms"]
             del cases, refs
             torch.cuda.empty_cache()
+
+
+def phase_head_cells(torch, mods, per_kernel):
+    """The LPIPS distance head at the two attribution cells' shapes: 20 chains
+    against one target, the 256px slices in float32 and the 1024px slices in
+    bf16.  For each launch its time (launch function, CUDA events, median of
+    15), its time back to back (20 launches enqueued together: at the larger
+    slices the kernel's device time, the wrapper's host work hidden under the
+    previous launch), the plain chain's time and the byte bound, each summed
+    over the five slices under ``cell_`` keys of its kernel; the kernel held
+    to the plain chain as in phase 2."""
+    roof = mods[-1]
+    for dtype, img in (("float32", 256), ("bfloat16", 1024)):
+        g = torch.Generator(device="cuda").manual_seed(300 + img)
+        rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device="cuda") * scale  # noqa: E731
+        act = (lambda t: t.bfloat16()) if dtype == "bfloat16" else (lambda t: t)
+        with torch.no_grad():
+            for name, shape, kfn, pfn, _, counts, chk in head_cases(torch, mods[4], roof, 20, rnd, act, dtype, img):
+                kname = name + (BF16 if dtype == "bfloat16" else "")
+                line = {"phase": "head_cells", "kernel": kname, "shape": shape, "batch": 20, "img_size": img,
+                        "ms": median_ms(torch, kfn), "back_to_back_ms": back_to_back_ms(torch, kfn),
+                        "plain_ms": median_ms(torch, pfn), **counts}
+                line["share_of_bound"] = line["bound_ms"] / line["back_to_back_ms"]
+                k, p, _ = chk()
+                torch.cuda.synchronize()
+                err, pmax = (k.float() - p.float()).abs().max().item(), p.float().abs().max().item()
+                check(bool(torch.isfinite(k).all()) and k.dtype == p.dtype
+                      and err <= (BF16_TOL if dtype == "bfloat16" else HEAD_RTOL) * pmax,
+                      f"{kname} {shape} batch 20: error {err:.3e} of max {pmax:.3e}")
+                line["max_abs_err"], line["max_abs_plain"] = err, pmax
+                emit(line)
+                agg = per_kernel.setdefault(("launch", kname), {})
+                for key in ("ms", "back_to_back_ms", "plain_ms", "bound_ms"):
+                    agg["cell_" + key] = agg.get("cell_" + key, 0.0) + line[key]
+                del k, p
+        torch.cuda.empty_cache()
 
 
 def phase_recovery(torch, port, dtype="float32"):
@@ -1807,7 +1904,7 @@ def phase_biggan(torch, port, gpu):
     check(os.path.exists(os.path.join(r.run_dir, "result.txt")), "cli.attribute --model biggan: no result.txt")
     check(len(r.bit_accs) == samples and all(v == v and abs(v) < float("inf") for v in r.losses),
           f"rows {r.bit_accs}, losses {r.losses}")
-    for name in ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd"):
+    for name in ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd", "lpips_head_fwd", "lpips_head_bwd"):
         check(counts[name] > 0, f"kernel {name} was not launched by the BigGAN solve")
     for name in ("blur4", "upblur4", "upblur4_adj"):
         check(counts[name] == 0, f"kernel {name} launched {counts[name]} times by the BigGAN solve")
@@ -2565,7 +2662,8 @@ def phase_evaluate(torch, port, gpu, device="cuda", argv=EVALUATE, squeeze_argv=
         line["train_attack_max_abs_err"] = errs
         check(max(errs.values()) <= 1e-5, f"train-mode attacks card vs CPU {errs}")
 
-    # the solver on a SqueezeNet LPIPS: the generator's FIR kernels, no VGG kernel
+    # the solver on a SqueezeNet LPIPS: the generator's FIR kernels, no VGG kernel, the distance
+    # head on SqueezeNet's features (NHWC views of NCHW maps, made contiguous by its wrapper)
     cuda_mod.reset_launches()
     r = port["cli_attribute"].run(squeeze_argv + ["--loss", "perceptual", "--lpips_net", "squeeze", "--sample_size",
                                                   "2", "--n", "4", "--steps", "10",
@@ -2573,6 +2671,7 @@ def phase_evaluate(torch, port, gpu, device="cuda", argv=EVALUATE, squeeze_argv=
     sq = cuda_mod.launch_counts()
     check(all(sq[n] > 0 for n in ("blur4", "upblur4", "upblur4_adj")), f"squeeze solve: FIR launches {sq}")
     check(all(sq[n] == 0 for n in ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd")), f"squeeze solve: {sq}")
+    check(sq["lpips_head_fwd"] > 0 and sq["lpips_head_bwd"] > 0, f"squeeze solve: head launches {sq}")
     check(all(v == v and abs(v) < float("inf") for v in r.losses), f"squeeze solve: losses {r.losses}")
     line["squeeze_attribute"] = {"solve_seconds": r.solve_seconds, "losses": r.losses, "launches": sq}
     line["gpu"] = gpu
@@ -2598,7 +2697,7 @@ PARALLEL_TRAIN_GATHER = PARALLEL_TRAIN + ["--batch", "4", "--steps", "4", "--chu
 # BigGAN-deep-256 on a 1 x 2 mesh (every rank is on the model axis): replicated, as the reference places it
 BIGGAN_MODEL_AXIS = ["--mesh_data", "0", "--mesh_model", "2"]
 BIGGAN_PARALLEL_ATTRIBUTE = BIGGAN_FULL + ["--loss", "perceptual", "--sample_size", "2", "--n", "4", "--steps", "1"]
-LPIPS_KERNELS = ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd")
+LPIPS_KERNELS = ("conv3x3_relu", "vgg_slice1_fwd", "vgg_slice1_bwd", "lpips_head_fwd", "lpips_head_bwd")
 FIR_KERNELS = ("blur4", "upblur4", "upblur4_adj")
 
 
@@ -2973,6 +3072,7 @@ def import_port() -> dict:
     return {name: importlib.import_module(f"{PORT}.{mod}") for name, mod in (
         ("_cuda", "ops._cuda"), ("up_cuda", "ops.upfirdn2d_cuda"), ("vgg_cuda", "ops.vgg_cuda"),
         ("slice_cuda", "ops.vgg_slice_cuda"), ("upf", "ops.upfirdn2d"), ("roof", "ops.roofline"),
+        ("head_cuda", "ops.lpips_head_cuda"),
         ("tf32", "ops.tf32"), ("config", "config"), ("attacks", "attacks"), ("lhs", "utils.lhs"),
         ("state", "checkpoints.state"),
         ("pipeline", "fingerprint.pipeline"), ("attribute", "fingerprint.attribute"),
@@ -3016,10 +3116,11 @@ def main() -> int:
           "numpy": numpy.__version__, "python": sys.version.split()[0],
           "library": os.path.relpath(str(lib), ROOT), "build_seconds": time.time() - t0})
 
-    mods = (port["up_cuda"], port["vgg_cuda"], port["slice_cuda"], port["upf"])
+    mods = (port["up_cuda"], port["vgg_cuda"], port["slice_cuda"], port["upf"], port["head_cuda"])
     per_kernel = phase_kernels(torch, mods, port["roof"].DISC_BLUR_SHAPES)
     phase_second_derivative(torch, mods, port["roof"].DISC_BLUR_SHAPES)
     phase_launch_times(torch, mods + (port["roof"],), per_kernel)
+    phase_head_cells(torch, mods + (port["roof"],), per_kernel)
     emit({"phase": "kernels_done", "seconds": time.time() - t_start})
     phase_recovery(torch, port)
     phase_recovery(torch, port, "bfloat16")
@@ -3069,7 +3170,8 @@ def main() -> int:
 
     # where phase 2 held a kernel through a wrapper that another kernel shares: (case name, its error)
     through = {"vgg_slice1_fwd": ("vgg_slice1", "err_fwd"), "vgg_slice1_bwd": ("vgg_slice1", "err_dx"),
-               "upblur4": ("upblur4", "err_fwd"), "upblur4_adj": ("upblur4", "err_dx")}
+               "upblur4": ("upblur4", "err_fwd"), "upblur4_adj": ("upblur4", "err_dx"),
+               "lpips_head_fwd": ("lpips_head", "err_fwd"), "lpips_head_bwd": ("lpips_head", "err_dx")}
     kernels = []
     for name, k in port["_cuda"].KERNELS.items():
         bf16 = name.endswith(BF16)
@@ -3084,10 +3186,10 @@ def main() -> int:
         # solve), launch function only, summed over the shapes; for the bf16 skip chain,
         # whose main path is one launch each way, that launch (the one-level launches of
         # the six shapes summed under ``per_level_``)
-        times = {key: launch[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        times = {key: launch.get(key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         times["bound_by"] = max(launch["bound_by"], key=launch["bound_by"].get)
         # the 1024px main path's shapes at batch 2, summed likewise (its skip chain's launch alone)
-        px = {"px1024_" + key: launch["px1024_" + key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        px = {"px1024_" + key: launch.get("px1024_" + key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         px["px1024_bound_by"] = max(launch["px1024_bound_by"], key=launch["px1024_bound_by"].get)
         px["px1024_max_abs_err"] = launch["px1024_err"]
         if "chain_ms" in launch:
@@ -3126,6 +3228,8 @@ def main() -> int:
             # the discriminator's shapes (`disc_`, forward and `disc_adjoint_`), summed likewise
             **{k: v for k, v in launch.items() if k.startswith(("adjoint_", "disc_"))}, **px,
             **{k: v for k, v in launch.items() if k.startswith("px1024_adjoint_")},
+            # the distance head at the two attribution cells' shapes, 20 chains (phase_head_cells)
+            **{k: v for k, v in launch.items() if k.startswith("cell_")},
         })
     print(gpu, flush=True)
     emit({"kernels": kernels})

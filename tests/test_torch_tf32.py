@@ -306,7 +306,7 @@ def test_kernel_counts_per_image(name, flops_g, mbytes, by):
         t_ops = c["flops"] / (roofline.PEAK_F32 if "blur4" in name else roofline.CONV_RATE)
         assert c["bound_ms"] == pytest.approx(1e3 * max(t_ops, c["bytes"] / roofline.PEAK_BYTES))
     assert set(roofline.LAUNCHES_PER_STEP) == {"blur4", "upblur4", "upblur4_adj", "conv3x3_relu",
-                                               "vgg_slice1_fwd", "vgg_slice1_bwd"}
+                                               "vgg_slice1_fwd", "vgg_slice1_bwd", "lpips_head_fwd", "lpips_head_bwd"}
     # the bf16 variants: the same operations, half the bytes, the FIRs at the float32
     # CUDA-core rate (they sum in float), the products at the dense bf16 tensor-core rate
     for (_, c), (_, b) in zip(cases, roofline.main_path(name, 1, "bfloat16")):

@@ -173,20 +173,21 @@ def test_upblur4_fused_and_adjoint_counts(h):
 # A solve step's launches at 256 px (the tables the card runs are held to) and at
 # 1024 px (StyleGAN2 config-f: 8 upsample blocks; LPIPS on the 1024^2 image; in bf16
 # the cotangent cascade sends its two widest levels alone first), with gradient
-# checkpointing: remat re-runs each block's forward blur4, remat_lpips LPIPS's forward.
+# checkpointing: remat re-runs each block's forward blur4, remat_lpips LPIPS's forward;
+# the LPIPS distance head, outside the checkpoint, once each way for each of the five slices.
 STEP_LAUNCHES = [
     ("float32", 256, False, False, dict(blur4=12, upblur4=6, upblur4_adj=6, conv3x3_relu=16, vgg_slice1_fwd=1,
-                                        vgg_slice1_bwd=1)),
+                                        vgg_slice1_bwd=1, lpips_head_fwd=5, lpips_head_bwd=5)),
     ("bfloat16", 256, False, False, dict(blur4=12, upblur4=1, upblur4_adj=1, conv3x3_relu=16, vgg_slice1_fwd=1,
-                                         vgg_slice1_bwd=1)),
+                                         vgg_slice1_bwd=1, lpips_head_fwd=5, lpips_head_bwd=5)),
     ("float32", 1024, False, False, dict(blur4=16, upblur4=8, upblur4_adj=8, conv3x3_relu=16, vgg_slice1_fwd=1,
-                                         vgg_slice1_bwd=1)),
+                                         vgg_slice1_bwd=1, lpips_head_fwd=5, lpips_head_bwd=5)),
     ("bfloat16", 1024, False, False, dict(blur4=16, upblur4=1, upblur4_adj=3, conv3x3_relu=16, vgg_slice1_fwd=1,
-                                          vgg_slice1_bwd=1)),
+                                          vgg_slice1_bwd=1, lpips_head_fwd=5, lpips_head_bwd=5)),
     ("float32", 1024, True, False, dict(blur4=24, upblur4=8, upblur4_adj=8, conv3x3_relu=16, vgg_slice1_fwd=1,
-                                        vgg_slice1_bwd=1)),
+                                        vgg_slice1_bwd=1, lpips_head_fwd=5, lpips_head_bwd=5)),
     ("bfloat16", 1024, True, True, dict(blur4=24, upblur4=1, upblur4_adj=3, conv3x3_relu=24, vgg_slice1_fwd=2,
-                                        vgg_slice1_bwd=1)),
+                                        vgg_slice1_bwd=1, lpips_head_fwd=5, lpips_head_bwd=5)),
 ]
 
 
