@@ -24,7 +24,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (their plain versions)")
     p.add_argument("--model", type=str, default="sg2", choices=["sg2", "biggan"],
-                   help="GAN model: sg2 | biggan (BigGAN-deep-256)")
+                   help="GAN model: sg2 | biggan (BigGAN-deep at --img_size 256 or 512)")
     p.add_argument("--biggan_label", type=str, default="golden retriever",
                    help="BigGAN class: an ImageNet label name or an integer class id")
     p.add_argument("--ckpt", type=str, default="./checkpoint/550000.pt",
@@ -32,7 +32,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    "a pytorch_pretrained_biggan state dict for --model biggan)")
     p.add_argument("--random_init", action="store_true",
                    help="random generator weights instead of --ckpt")
-    p.add_argument("--img_size", type=int, default=256, help="generator output size")
+    p.add_argument("--img_size", type=int, default=256,
+                   help="generator output size (--model biggan: 256 or 512, BigGAN-deep-256 / -512)")
     p.add_argument("--style_dim", type=int, default=512, help="w-space dimensionality")
     p.add_argument("--n_mlp", type=int, default=8, help="mapping network depth")
     p.add_argument("--channel_max", type=int, default=512, help="per-resolution channel cap")

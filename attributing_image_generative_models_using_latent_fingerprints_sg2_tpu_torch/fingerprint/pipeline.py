@@ -76,7 +76,8 @@ def build_pipeline(
     CUDA device the default raises (``utils.device.resolve_device``).
 
     ``mcfg.model == "biggan"`` builds the reference's second family
-    (``biggan_cfg``, BigGAN-deep-256 by default): PCA over truncated noise at
+    (``biggan_cfg``, by default the published BigGAN-deep of ``mcfg.img_size``,
+    256 or 512: ``BigGANConfig.for_size``): PCA over truncated noise at
     ``truncation`` (``pca_z`` replaces the draw), the class of
     ``mcfg.biggan_label``, no synthesis noise.
 
@@ -88,7 +89,7 @@ def build_pipeline(
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     extra: Dict[str, Any] = {}
     if mcfg.model == "biggan":
-        bg_cfg = biggan_cfg or bg.BigGANConfig()
+        bg_cfg = biggan_cfg or bg.BigGANConfig.for_size(mcfg.img_size)
         if bg_cfg.img_size != mcfg.img_size:
             raise ValueError(f"BigGAN layers make {bg_cfg.img_size}px images; img_size is {mcfg.img_size}")
         if gen_params is None:

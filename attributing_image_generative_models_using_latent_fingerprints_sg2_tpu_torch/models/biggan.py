@@ -3,7 +3,8 @@
 
 Counterpart of the reference package's ``models/biggan.py`` (the reference's
 second model family, ``BigGAN.from_pretrained('biggan-deep-256')``), with the
-same architecture and algebra:
+same architecture and algebra, at the published 256px and 512px layer tables
+(``BigGANConfig.for_size``):
 
 - cond = concat(z, class_embedding(one_hot))  [B, 256];
 - gen_z: linear -> [B, 4, 4, 16*ch] (the package's view), then NCHW;
@@ -23,17 +24,25 @@ reads a ``pytorch_pretrained_biggan`` state dict; ``params_from_jax`` carries
 the JAX package's NHWC/HWIO tree across, so no other module sees that layout.
 The convs are cuDNN's (``F.conv2d``) and the attention two ``torch.bmm``:
 the reference package runs them outside any Pallas kernel too.
+
+Tracing: ``generate`` runs inside a ``biggan.generate`` profiler span, each
+block inside ``biggan.block`` and the non-local block inside
+``biggan.attention``; :func:`render_counts` counts the images ``generate``
+has rendered since :func:`reset_render_counts` (as ``ops._cuda`` counts
+kernel launches).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..ops.pool import maxpool2x2
 from ..utils.tree import tree_to
@@ -47,6 +56,9 @@ BIGGAN_DEEP_256_LAYERS = (
     (False, 4, 4),  # attention sits before this layer (position 8)
     (True, 4, 2), (False, 2, 2), (True, 2, 1),
 )
+# biggan-deep-512: the 256px table, then two layers at 512 channels x 1 (config.json of the 512px checkpoint)
+BIGGAN_DEEP_512_LAYERS = BIGGAN_DEEP_256_LAYERS + ((False, 1, 1), (True, 1, 1))
+PUBLISHED_LAYERS = {256: BIGGAN_DEEP_256_LAYERS, 512: BIGGAN_DEEP_512_LAYERS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +71,15 @@ class BigGANConfig:
     attention_layer_position: int = 8
     layers: Tuple[Tuple[bool, int, int], ...] = BIGGAN_DEEP_256_LAYERS
     n_stats: int = 51  # running statistics stored for truncations linspace(0, 1, n_stats)
+
+    @classmethod
+    def for_size(cls, img_size: int) -> "BigGANConfig":
+        """The published BigGAN-deep configuration that makes ``img_size``
+        images: biggan-deep-256 or biggan-deep-512 (the same widths, two more
+        layers); any other size raises."""
+        if img_size not in PUBLISHED_LAYERS:
+            raise ValueError(f"BigGAN-deep is published at {sorted(PUBLISHED_LAYERS)} px; img_size is {img_size}")
+        return cls(output_dim=img_size, layers=PUBLISHED_LAYERS[img_size])
 
     @property
     def cond_dim(self) -> int:
@@ -125,20 +146,21 @@ def _upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 def gen_block(x: torch.Tensor, cond: torch.Tensor, p: Params, *, up: bool, drop_to: Optional[int],
               truncation: float, n_stats: int) -> torch.Tensor:
-    h = F.relu(cond_batch_norm(x, cond, p["bn0"], truncation, n_stats))
-    h = _conv(h, p["conv0"])  # 1x1 reduce
-    h = F.relu(cond_batch_norm(h, cond, p["bn1"], truncation, n_stats))
-    if up:
-        h = _upsample2x_nearest(h)
-    h = _conv(h, p["conv1"], padding=1)
-    h = F.relu(cond_batch_norm(h, cond, p["bn2"], truncation, n_stats))
-    h = _conv(h, p["conv2"], padding=1)
-    h = F.relu(cond_batch_norm(h, cond, p["bn3"], truncation, n_stats))
-    h = _conv(h, p["conv3"])  # 1x1 expand
-    skip = x if drop_to is None else x[:, :drop_to]
-    if up:
-        skip = _upsample2x_nearest(skip)
-    return h + skip
+    with record_function("biggan.block"):
+        h = F.relu(cond_batch_norm(x, cond, p["bn0"], truncation, n_stats))
+        h = _conv(h, p["conv0"])  # 1x1 reduce
+        h = F.relu(cond_batch_norm(h, cond, p["bn1"], truncation, n_stats))
+        if up:
+            h = _upsample2x_nearest(h)
+        h = _conv(h, p["conv1"], padding=1)
+        h = F.relu(cond_batch_norm(h, cond, p["bn2"], truncation, n_stats))
+        h = _conv(h, p["conv2"], padding=1)
+        h = F.relu(cond_batch_norm(h, cond, p["bn3"], truncation, n_stats))
+        h = _conv(h, p["conv3"])  # 1x1 expand
+        skip = x if drop_to is None else x[:, :drop_to]
+        if up:
+            skip = _upsample2x_nearest(skip)
+        return h + skip
 
 
 def _pool_flat(y: torch.Tensor) -> torch.Tensor:
@@ -150,13 +172,14 @@ def _pool_flat(y: torch.Tensor) -> torch.Tensor:
 def self_attention(x: torch.Tensor, p: Params) -> torch.Tensor:
     """SAGAN attention: theta / phi / g 1x1 convs, phi and g max-pooled 2x,
     softmax over the pooled positions in float32."""
-    b, _, h, w = x.shape
-    theta = _conv(x, p["theta"]).reshape(b, -1, h * w)  # [B, C/8, HW]
-    phi = _pool_flat(_conv(x, p["phi"]))  # [B, C/8, HW/4]
-    g = _pool_flat(_conv(x, p["g"]))  # [B, C/2, HW/4]
-    attn = torch.softmax(torch.bmm(theta.transpose(1, 2), phi), dim=-1)  # [B, HW, HW/4]
-    o = torch.bmm(g, attn.transpose(1, 2)).reshape(b, -1, h, w)
-    return x + p["gamma"] * _conv(o, p["o_conv"])
+    with record_function("biggan.attention"):
+        b, _, h, w = x.shape
+        theta = _conv(x, p["theta"]).reshape(b, -1, h * w)  # [B, C/8, HW]
+        phi = _pool_flat(_conv(x, p["phi"]))  # [B, C/8, HW/4]
+        g = _pool_flat(_conv(x, p["g"]))  # [B, C/2, HW/4]
+        attn = torch.softmax(torch.bmm(theta.transpose(1, 2), phi), dim=-1)  # [B, HW, HW/4]
+        o = torch.bmm(g, attn.transpose(1, 2)).reshape(b, -1, h, w)
+        return x + p["gamma"] * _conv(o, p["o_conv"])
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +192,18 @@ def class_embedding(params: Params, class_onehot: torch.Tensor) -> torch.Tensor:
     return F.linear(class_onehot, params["embeddings"])
 
 
+_RENDERED = {"biggan_images": 0}
+
+
+def reset_render_counts() -> None:
+    _RENDERED["biggan_images"] = 0
+
+
+def render_counts() -> Dict[str, int]:
+    """Images rendered by :func:`generate` since :func:`reset_render_counts`."""
+    return dict(_RENDERED)
+
+
 def generate(params: Params, z: torch.Tensor, class_onehot: torch.Tensor, truncation: float,
              cfg: BigGANConfig = BigGANConfig()) -> torch.Tensor:
     """z [B, z_dim] (truncated noise), one-hot [B, num_classes], truncation a
@@ -177,18 +212,20 @@ def generate(params: Params, z: torch.Tensor, class_onehot: torch.Tensor, trunca
     bf16 mode) is widened where it meets the float32 class embedding, as the
     reference's ``concatenate`` promotes it: from there the generator runs in
     the parameters' float32, so its image is float32."""
-    cond = torch.cat([z, class_embedding(params, class_onehot)], dim=1)
-    ch = cfg.channel_width
-    h = F.linear(cond, params["gen_z"]["w"], params["gen_z"]["b"])
-    h = h.reshape(z.shape[0], 4, 4, 16 * ch).permute(0, 3, 1, 2).contiguous()
-    for i, (up, in_m, out_m) in enumerate(cfg.layers):
-        if i == cfg.attention_layer_position:
-            h = self_attention(h, params["attn"])
-        h = gen_block(h, cond, params["layers"][i], up=up, drop_to=out_m * ch if in_m != out_m else None,
-                      truncation=truncation, n_stats=cfg.n_stats)
-    h = F.relu(batch_norm(h, params["bn_out"], truncation, cfg.n_stats))
-    h = _conv(h, params["conv_out"], padding=1)
-    return torch.tanh(h).permute(0, 2, 3, 1).contiguous()
+    _RENDERED["biggan_images"] += z.shape[0]
+    with record_function("biggan.generate"):
+        cond = torch.cat([z, class_embedding(params, class_onehot)], dim=1)
+        ch = cfg.channel_width
+        h = F.linear(cond, params["gen_z"]["w"], params["gen_z"]["b"])
+        h = h.reshape(z.shape[0], 4, 4, 16 * ch).permute(0, 3, 1, 2).contiguous()
+        for i, (up, in_m, out_m) in enumerate(cfg.layers):
+            if i == cfg.attention_layer_position:
+                h = self_attention(h, params["attn"])
+            h = gen_block(h, cond, params["layers"][i], up=up, drop_to=out_m * ch if in_m != out_m else None,
+                          truncation=truncation, n_stats=cfg.n_stats)
+        h = F.relu(batch_norm(h, params["bn_out"], truncation, cfg.n_stats))
+        h = _conv(h, params["conv_out"], padding=1)
+        return torch.tanh(h).permute(0, 2, 3, 1).contiguous()
 
 
 def truncated_noise(batch: int, truncation: float, dim: int = 128,
@@ -355,7 +392,7 @@ def params_from_torch_state_dict(sd: Mapping[str, Any], cfg: BigGANConfig = BigG
 
     params: Params = {"embeddings": eff_weight("embeddings"), "gen_z": layer("generator.gen_z")}
     layers = []
-    for i in range(len(cfg.layers) + 1):  # + 1: the attention block takes one slot
+    for i in itertools.count():  # the attention block takes a slot of its own
         base = f"generator.layers.{i}"
         if f"{base}.theta.weight_orig" in sd or f"{base}.theta.weight" in sd:
             params["attn"] = {**{k: layer(f"{base}.{k}") for k in ("theta", "phi", "g", "o_conv")},
@@ -365,6 +402,9 @@ def params_from_torch_state_dict(sd: Mapping[str, Any], cfg: BigGANConfig = BigG
             break
         layers.append({**{f"bn{j}": bn(f"{base}.bn_{j}", True) for j in range(4)},
                        **{f"conv{j}": layer(f"{base}.conv_{j}") for j in range(4)}})
+    if len(layers) != len(cfg.layers):
+        raise ValueError(f"the state dict holds {len(layers)} generator layers; the configuration has "
+                         f"{len(cfg.layers)} (BigGANConfig.for_size picks the published table of an image size)")
     params["layers"] = layers
     params["bn_out"] = bn("generator.bn", False)
     rgb = layer("generator.conv_to_rgb")

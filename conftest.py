@@ -8,6 +8,15 @@ tests start inherit whichever value holds.
 
 import os
 
+# XLA:CPU picks its vector ISA from the host, and its AVX-512 code sums the
+# JAX reference's reductions in another order than its AVX2 code.  A free
+# perceptual solve compounds that into losses a few percent apart (the
+# reference package's remat-versus-plain check in test_attribution_e2e.py), so
+# every test process pins one ISA and the JAX side reads the same on any host.
+# This conftest loads before tests/conftest.py, which imports jax.
+if "xla_cpu_max_isa" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX2").strip()
+
 
 def pytest_configure(config):
     # xdist's controller runs no test, and the workers it starts inherit its

@@ -92,15 +92,20 @@ def test_perceptual_solve_matches_jax_loss_for_loss(direct_cpu_convs, mse_proble
     perceptual steps of the JAX solver.  At every step, from the JAX
     solver's state: the port's loss of every restart agrees to 1e-4
     relative; the port's Adam update, given the JAX gradient, lands on the
-    JAX solver's next state (1e-5); and the port's gradient agrees with the
-    JAX one to 1e-4 of its scale at all but at most one step.
+    JAX solver's next state (1e-5); and each restart's gradient (alpha and
+    key logits) agrees with the JAX one to a relative L2 gap of 1e-5 at the
+    median over the 10 steps x 6 restarts, and of 1e-3 at the worst.
 
-    The one step allowed is a ReLU kink, not a port error: at step 3 of this
-    solve one conv1_2 pre-activation of the 6 restarts' images is 2.8e-7
-    from zero, and float32 rounding puts it on the other side in the port
-    than in the JAX package and in a float64 evaluation.  Steps are compared
-    from the same state because free-running float32 solves drift apart
-    through Adam (its first moment cancels when a gradient changes sign)."""
+    The worst is not held to 1e-5 because of ReLU kinks, not port errors: at
+    a few steps one pre-activation of one restart's image (LPIPS's ReLUs) sits
+    within rounding of zero, and float32 rounding puts it on the other side in
+    the port than in the JAX package.  That restart's gradient then reads
+    2e-4 - 4.2e-4 apart while the others read 4e-7 - 9e-6; how many steps
+    meet a kink depends on the host's float32 convolutions (one on Intel
+    hosts, four on AMD EPYC ones).  A fault of the port's gradient moves every
+    restart and fails the median.  Steps are compared from the same state
+    because free-running float32 solves drift apart through Adam (its first
+    moment cancels when a gradient changes sign)."""
     mcfg_j, steps = mse_problem["mcfg_j"], 10
     # the shared problem's pipeline (the same keys and generator weights; LPIPS
     # draws no key of its own when given) with LPIPS weights from a jitted
@@ -124,7 +129,7 @@ def test_perceptual_solve_matches_jax_loss_for_loss(direct_cpu_convs, mse_proble
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     params = {"alpha": a0, "key": jnp.zeros((2, 3, 8))}
     opt_state = opt.init(params)
-    off_steps = set()
+    gaps = []  # relative L2 gap of each restart's gradient, every step
     for i in range(steps):
         adam = opt_state[0]
         alpha = t(params["alpha"]).requires_grad_(True)
@@ -144,14 +149,16 @@ def test_perceptual_solve_matches_jax_loss_for_loss(direct_cpu_convs, mse_proble
         new = attr.adam_update(state, {name: t(jg[name].astype(np.float32)) for name in jg}, acfg)
 
         np.testing.assert_allclose(per.detach().numpy(), np.asarray(jper), rtol=1e-4, err_msg=f"step {i}")
-        for name, g in (("alpha", g_alpha), ("key", g_key)):
-            want = np.asarray(jg[name])
-            if np.abs(g.numpy() - want).max() > 1e-4 * np.abs(want).max():
-                off_steps.add(i)
+        got = np.concatenate([g_alpha.numpy(), g_key.numpy()], axis=-1).astype(np.float64)
+        want = np.concatenate([jg["alpha"], jg["key"]], axis=-1)
+        gaps.append(np.linalg.norm(got - want, axis=-1) / np.linalg.norm(want, axis=-1))
+        for name in ("alpha", "key"):
             np.testing.assert_allclose(new[name].numpy(), np.asarray(params[name]), atol=1e-5,
                                        err_msg=f"step {i} {name}")
         assert new["count"] == int(opt_state[0].count)
-    assert len(off_steps) <= 1, f"gradients differ beyond 1e-4 of their scale at steps {sorted(off_steps)}"
+    gaps = np.stack(gaps)
+    assert np.median(gaps) <= 1e-5, gaps
+    assert gaps.max() <= 1e-3, gaps
 
 
 def test_adam_matches_optax_convention():

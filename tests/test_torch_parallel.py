@@ -441,12 +441,18 @@ def test_mesh_solve_draws_the_single_process_starts(ranks, direct_cpu_convs):
 def test_generate_on_mesh_matches_single_process_and_reference_synthesis(ranks, direct_cpu_convs):
     """The latents are the single-process draws exactly; the images match the
     port's single-process render (1e-6) and the reference package's synthesis
-    of the same latents on its 2-device mesh (1e-4 of the images' range)."""
+    of the same latents on its 2-device mesh (1e-4 of the images' range).
+    The single-process render is made in the ranks' row blocks (S_ / 2 rows
+    each): a GEMM of another batch may sum in another order, which on some
+    hosts' BLAS (AMD EPYC) moves the images by up to ~2e-6."""
     o = ranks["outs"][0]
     imgs, w0, wx, bits, alpha = pl.generate_fingerprinted(ranks["pipe"], S_, torch.Generator().manual_seed(9))
     for name, want in (("w0", w0), ("wx", wx), ("bits", bits), ("alpha", alpha)):
         np.testing.assert_array_equal(o["gen_" + name], want.numpy(), err_msg=name)
-    np.testing.assert_allclose(o["gen_imgs"], imgs.numpy(), atol=1e-6)
+    half = S_ // 2
+    blocks = torch.cat([pl.synthesize(ranks["pipe"], wx[r * half:(r + 1) * half]) for r in range(2)])
+    np.testing.assert_allclose(o["gen_imgs"], blocks.numpy(), atol=1e-6)
+    np.testing.assert_allclose(o["gen_imgs"], imgs.numpy(), atol=1e-5)
     np.testing.assert_allclose(o["gen_imgs"], ranks["jax"]["imgs"], atol=1e-4)
 
 

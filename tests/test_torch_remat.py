@@ -122,7 +122,12 @@ def test_remat_synthesis_is_the_plain_forward_with_the_plain_gradients(jparams, 
 
 
 def test_remat_synthesis_matches_jax_remat(jparams, inputs):
+    """oneDNN's CPU convs pick their algorithm by the host's instruction set and
+    land ~1e-4 of the gradients' scale from JAX on some hosts (AMD EPYC):
+    parity is checked with PyTorch's direct convs, as the other parity tests do."""
     latent, noise, cot = inputs
+    with torch.backends.mkldnn.flags(enabled=False):
+        img, grads, _ = _port_grads(jparams, latent, noise, cot, remat=True)
 
     def f(p, lat):
         img = jsg2.synthesis(p, lat, [jnp.asarray(n) for n in noise], remat=True)
@@ -130,7 +135,6 @@ def test_remat_synthesis_matches_jax_remat(jparams, inputs):
 
     (_, jimg), (jg_p, jg_lat) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         jax.tree.map(jnp.asarray, jparams), jnp.asarray(latent))
-    img, grads, _ = _port_grads(jparams, latent, noise, cot, remat=True)
     np.testing.assert_allclose(img.numpy(), np.asarray(jimg), atol=1e-5)
     jleaves = [np.asarray(jg_lat)] + [np.asarray(t) for t in tree_leaves(
         _synthesis_part(rosinality.params_from_jax(jax.tree.map(np.asarray, jg_p), "cpu")))]

@@ -302,10 +302,17 @@ def tiny_pipe():
     return pipe
 
 
+# Steps of the converging point: at 200 the second sample's last bit settled
+# on the float32 rounding of the host (1 of 2 keys exact on AMD EPYC hosts,
+# 2 of 2 on others); from 250 on both keys come out on every host tried, so
+# 400 leaves the outcome to the solve, not to the rounding.
+CONVERGING_STEPS = 400
+
+
 @pytest.fixture(scope="module")
 def converged(tiny_pipe):
-    return study.eval_point(tiny_pipe, key_len=8, sigma=3.0, shift=56, samples=2, steps=200, n_starts=4,
-                            dtype="float32")
+    return study.eval_point(tiny_pipe, key_len=8, sigma=3.0, shift=56, samples=2, steps=CONVERGING_STEPS,
+                            n_starts=4, dtype="float32")
 
 
 def test_converging_point_recovers_every_planted_key(converged):
@@ -340,10 +347,10 @@ def test_record_schema_and_spectrum_match_jax(tiny_pipe, converged, monkeypatch)
     path = os.path.join(os.path.dirname(__file__), "..", "result", "study_headline.json.jsonl")
     want = set(json.loads(open(path).readline())) - {"tag", "train_steps", "bit_sigma_spearman", "wall_s"}
     assert set(converged) == want
-    kw = dict(key_len=8, sigma=3.0, shift=56, samples=2, steps=200, n_starts=4, prune_starts=2)
+    kw = dict(key_len=8, sigma=3.0, shift=56, samples=2, steps=CONVERGING_STEPS, n_starts=4, prune_starts=2)
     jrec = _jax_record(tiny_pipe, monkeypatch, **kw)
     assert set(jrec) == want
-    rec = dict(converged, chain_steps_per_sample=attr.executed_chain_steps(200, 4, 2, 0.25))
+    rec = dict(converged, chain_steps_per_sample=attr.executed_chain_steps(CONVERGING_STEPS, 4, 2, 0.25))
     for key in ("band_sigma", "spectrum_decile_sigmas"):
         np.testing.assert_allclose(rec[key], jrec[key], rtol=1e-6, atol=1e-6)
     for key in ("band_sigma_median", "content_sigma_median", "chain_steps_per_sample"):
